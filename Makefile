@@ -4,28 +4,33 @@
 
 PY ?= python
 
-.PHONY: ci lint test test-full golden dryrun bench-smoke
+.PHONY: ci lint test test-full test-gpu golden dryrun bench-smoke
 
 ci: lint test-full dryrun bench-smoke
 
 lint:
-	$(PY) -m compileall -q idsp_tpu benches scripts tests bench.py __graft_entry__.py
+	$(PY) -m compileall -q idsp_tpu benches scripts tests bench.py chip_smoke.py __graft_entry__.py
 	$(PY) scripts/lint.py
 
 # quick lane: skips the `slow`-marked long tail (see tests/conftest.py)
 test:
-	$(PY) -m pytest tests/ -q -m "not slow"
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q -m "not slow"
 
 test-full:
-	$(PY) -m pytest tests/ -q
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -q
+
+# on the card: the compiled-kernel tests, then the end-to-end smoke
+test-gpu:
+	JAX_PLATFORMS=cuda $(PY) -m pytest tests/ -q -m gpu
+	$(PY) chip_smoke.py
 
 golden:
 	rm -f native/libgolden.so
 	$(PY) -m pytest tests/test_golden.py -q
 
 dryrun:
-	$(PY) -c "import os; os.environ['XLA_FLAGS'] = os.environ.get('XLA_FLAGS', '') + ' --xla_force_host_platform_device_count=8'; import jax; jax.config.update('jax_platforms', 'cpu'); import __graft_entry__ as g; fn, a = g.entry(); fn(*a); g.dryrun_multichip(8); print('dryrun ok')"
+	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 $(PY) __graft_entry__.py
 
+# rehearsal of the scaling harness on virtual CPU devices (CPU times)
 bench-smoke:
-	IDSP_FORCE_CPU=1 $(PY) benches/suite.py --channels 64 --time 512 --iters 2 --trials 1 --only "df1 (scan)"
-	$(PY) benches/scaling.py --devices 1,2 --channels-per-device 16 --time 256 --iters 1
+	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=2 $(PY) benches/scaling.py --devices 1,2 --channels-per-device 16 --time 256 --iters 1

@@ -1,44 +1,47 @@
-"""BASELINE config #5 headline: 1024-channel wideband DDC bank with
-per-channel PLL carrier tracking, 64 K-sample blocks.
+"""BASELINE config #5: 1024-channel wideband DDC bank with per-channel
+PLL carrier tracking.
 
-Reports G channel-samples/s (full-rate input samples x channels) for
-the integer Lowpass2 channel filter and the Q32 biquad variant, both
-riding the Pallas bank kernels (NCO mix -> filter -> decimate-by-16 ->
-atan2 -> PLL bank).
+Reports channel-samples/s (full-rate input samples x channels) for the
+integer Lowpass2 channel filter and the Q32 biquad variant (NCO mix ->
+filter -> decimate -> atan2 -> PLL), exact and fast LO.  Needs a GPU.
 
-Run: python benches/ddc_bank_bench.py [--channels 1024] [--time 65536]
+Run: python benches/ddc_bank_bench.py [--channels 1024] [--time 16384]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--channels", type=int, default=1024)
-    ap.add_argument("--time", type=int, default=65536)
+    ap.add_argument("--time", type=int, default=16384)
     ap.add_argument("--decimate", type=int, default=16)
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--trials", type=int, default=5)
     args = ap.parse_args(argv)
 
-    import jax
-    import jax.numpy as jnp
+    from idsp_tpu import device
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    device.enable_compile_cache()
+    info = device.require_gpu()
+    print(f"# device={info} card={device.card_line()}", flush=True)
+
+    import jax.numpy as jnp
 
     from idsp_tpu.design import Filter
     from idsp_tpu.filters import biquad, lowpass, pll
     from idsp_tpu.pipelines import ddc_bank
-    from idsp_tpu.profiling import sync
+    from idsp_tpu.profiling import measure_rate
 
-    c, t, d, iters = args.channels, args.time, args.decimate, args.iters
+    c, t, d = args.channels, args.time, args.decimate
+    print(f"# c={c} t={t} dec={d}", flush=True)
     rng = np.random.default_rng(0)
     x = jnp.asarray(
         rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64).astype(
@@ -62,65 +65,26 @@ def main(argv=None):
         )
     )
 
-    print(f"# device={jax.devices()[0]} c={c} t={t} dec={d}", flush=True)
-
     def bench(name, fn, state):
-        out = fn(state)
-        sync(out)
+        sec, _ = measure_rate(fn, state, iters=(2, 12), trials=args.trials)
+        print(f"{name:42s} {sec*1e3:8.3f} ms/block "
+              f"({c * t / sec / 1e9:6.2f} G cs/s)", flush=True)
 
-        def timed(k):
-            t0 = time.perf_counter()
-            s = state
-            for _ in range(k):
-                s, outs = fn(s)
-            sync(outs)
-            return time.perf_counter() - t0
-
-        best = float("inf")
-        for _ in range(3):
-            d1 = min(timed(iters), timed(iters))
-            d2 = min(timed(3 * iters), timed(3 * iters))
-            best = min(best, (d2 - d1) / (2 * iters))
-        rate = c * t / best
-        print(f"{name:42s} {best*1e3:8.3f} ms/block "
-              f"({rate/1e9:6.2f} G cs/s)", flush=True)
-        return rate
-
-    bench(
-        "ddc bank (Lowpass2 + PLL, pallas)",
-        lambda s: ddc_bank.ddc_bank_block(
-            s, x, steps, lp_gains, pll_ba, decimate=d
-        ),
-        ddc_bank.init(c),
-    )
-    bench(
-        "ddc bank (Q32 biquad + PLL, pallas)",
-        lambda s: ddc_bank.ddc_bank_block_biquad(
-            s, x, steps, ba_q, pll_ba, decimate=d
-        ),
-        ddc_bank.init_biquad(c),
-    )
-    bench(
-        "ddc bank (biquad + PLL, fast LO)",
-        lambda s: ddc_bank.ddc_bank_block_biquad(
-            s, x, steps, ba_q, pll_ba, decimate=d, lo_mode="fast"
-        ),
-        ddc_bank.init_biquad(c),
-    )
-    bench(
-        "ddc bank (biquad + PLL, 1-kernel front end)",
-        lambda s: ddc_bank.ddc_bank_block_biquad(
-            s, x, steps, ba_q, pll_ba, decimate=d, lo_mode="fast_fused"
-        ),
-        ddc_bank.init_biquad(c),
-    )
-    bench(
-        "ddc bank (whole stack in one kernel)",
-        lambda s: ddc_bank.ddc_bank_block_biquad(
-            s, x, steps, ba_q, pll_ba, decimate=d, lo_mode="one_kernel"
-        ),
-        ddc_bank.init_biquad(c),
-    )
+    for lo_mode in ("exact", "fast"):
+        bench(
+            f"ddc bank (Lowpass2 + PLL, {lo_mode} LO)",
+            lambda s: ddc_bank.ddc_bank_block(
+                s, x, steps, lp_gains, pll_ba, decimate=d, lo_mode=lo_mode
+            ),
+            ddc_bank.init(c),
+        )
+        bench(
+            f"ddc bank (Q32 biquad + PLL, {lo_mode} LO)",
+            lambda s: ddc_bank.ddc_bank_block_biquad(
+                s, x, steps, ba_q, pll_ba, decimate=d, lo_mode=lo_mode
+            ),
+            ddc_bank.init_biquad(c),
+        )
 
 
 if __name__ == "__main__":

@@ -4,8 +4,7 @@
 Decimates a passband tone by 16 through the HBF_TAPS cascade, then
 interpolates back up and checks the round trip: passband amplitude
 within the cascade's ripple budget, out-of-band image suppression at
-the 140 dB stopband (hbf.rs:303-307).  Uses the one-kernel Pallas
-cascades on TPU (falls back to the XLA path when forced to CPU).
+the 140 dB stopband (hbf.rs:303-307).
 
 Run: python examples/rate_converter.py [n_samples]
 """
@@ -16,12 +15,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-if __import__("os").environ.get("IDSP_FORCE_CPU"):
-    import jax
 
-    jax.config.update("jax_platforms", "cpu")
-
-import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from idsp_tpu.filters import hbf  # noqa: E402
@@ -37,9 +31,7 @@ def main():
     xs = jnp.asarray(np.broadcast_to(x[:, None], (n, c)))
 
     st = rate_conversion.init_t(depth, (c,))
-    # the Pallas kernels need the Mosaic TPU path; CPU uses XLA
-    use_kernel = jax.default_backend() != "cpu"
-    st, y = rate_conversion.round_trip_t(st, xs, use_kernel=use_kernel)
+    st, y = rate_conversion.round_trip_t(st, xs)
     y = np.asarray(y[:, 0], dtype=np.float64)
 
     # coherent tone fit on the steady-state segment (robust to FFT

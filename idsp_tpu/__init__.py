@@ -1,6 +1,6 @@
-"""idsp_tpu — a TPU-native DSP framework (JAX/XLA/Pallas).
+"""idsp_tpu — a software-radio / embedded-DSP framework (JAX/XLA/Pallas).
 
-A from-scratch, TPU-first framework with the capabilities of the `idsp`
+A from-scratch framework with the capabilities of the `idsp`
 reference crate (quartiq/idsp): tuned fixed-point and float DSP blocks —
 NCO/DDS (`cossin`), `atan2`, CORDIC, biquad IIR in several state
 architectures, half-band FIR cascades, CIC, lock-in, PLL/RPLL — plus the
@@ -13,8 +13,8 @@ Design (not a port):
   (the reference's `SplitProcess` config/state split, dsp-process/src/
   process.rs:69-92, maps to pytree-of-arrays + scan carry).
 * Block/batch paths are vectorized jnp ops (closed-form phase ramps,
-  polyphase convs on the MXU/VPU, associative scans for linear recurrences)
-  with Pallas kernels for the hot loops.
+  polyphase convs, associative scans for linear recurrences), with one
+  GPU kernel (`filters.seq_bank`) for the per-lane integer recurrences.
 * Scale-out (absent in the single-core reference) is mesh sharding over
   channels and time blocks with XLA collectives; see `idsp_tpu.parallel`.
 
@@ -27,8 +27,7 @@ the reference does.
 import jax
 
 # Fixed-point paths need i64 accumulators (the reference's `Q<i32, i64, F>`
-# wide multiplies, dsp-fixedpoint/src/lib.rs:302-327). XLA emulates s64 on
-# TPU with 32-bit pairs; hot kernels avoid i64 where the reference does.
+# wide multiplies, dsp-fixedpoint/src/lib.rs:302-327).
 jax.config.update("jax_enable_x64", True)
 
 from . import fxp, luts, masked, testing  # noqa: E402

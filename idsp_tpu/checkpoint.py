@@ -2,8 +2,8 @@
 
 The reference's architecture makes checkpointing trivial because all
 mutable state is plain data separate from config (SURVEY.md §5:
-`PLLState`, `DirectForm*`, ring buffers, most with serde derives) — the
-TPU build preserves this: every filter state here is a pytree of
+`PLLState`, `DirectForm*`, ring buffers, most with serde derives) —
+this package preserves that: every filter state here is a pytree of
 arrays, and block-boundary carries are exactly the checkpoint payload.
 
 Two backends:

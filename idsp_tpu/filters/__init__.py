@@ -1,1 +1,1 @@
-"""Filters and control loops (reference L3), TPU-first."""
+"""Filters and control loops (reference L3)."""

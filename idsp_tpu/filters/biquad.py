@@ -1,6 +1,6 @@
 """Biquad IIR (second-order sections) over five state architectures.
 
-TPU-native equivalent of reference src/iir/biquad.rs.  Coefficients are
+Equivalent of reference src/iir/biquad.rs.  Coefficients are
 ``ba = [b0, b1, b2, a1, a2]`` with the recurrence sign convention of the
 reference (biquad.rs:96-116):
 
@@ -24,13 +24,13 @@ Architectures (biquad.rs:258-538):
 Block paths:
 
 * Float biquads use an associative-scan formulation (the 2nd-order
-  recurrence as an affine 2x2 matrix scan) — O(log n) depth on TPU.
+  recurrence as an affine 2x2 matrix scan) — O(log n) depth.
   Bit-identical to the sequential float scan is NOT guaranteed (FP
   reassociation); equivalence is gated at tolerance in tests.
 * Fixed-point paths quantize inside the recurrence (truncation is
   nonlinear), so time stays sequential (`lax.scan`); throughput comes
-  from vectorizing channels on the VPU lanes, and from the Pallas
-  kernel in `idsp_tpu.filters.biquad_pallas`.
+  from running channels side by side, in the lane-bank kernel on the
+  GPU (`idsp_tpu.filters.biquad_pallas`).
 
 All step functions are elementwise in any leading batch (channel) shape:
 state arrays have shape (..., 2) etc., and x has shape (...,).
@@ -181,7 +181,7 @@ def clamp_step(step_out, u, lo, hi):
     output overwritten into the feedback state (biquad.rs:394-404)."""
     state, y0 = step_out
     y0 = jnp.clip(y0 + u, lo, hi)
-    y = state.y.at[..., 0].set(y0)
+    y = jnp.stack([y0, state.y[..., 1]], axis=-1)
     return state._replace(y=y), y0
 
 
@@ -267,7 +267,8 @@ def df1_wide_clamp_step(ba, f: int, state: Df1WideState, x0, u, lo, hi):
     state, y0 = df1_wide_step(ba, f, state, x0)
     y0 = jnp.clip(y0 + u, lo, hi).astype(jnp.int32)
     y0w = (y0.astype(jnp.int64) << 32) | (state.y[..., 0] & 0xFFFFFFFF)
-    return state._replace(y=state.y.at[..., 0].set(y0w)), y0
+    y = jnp.stack([y0w, state.y[..., 1]], axis=-1)
+    return state._replace(y=y), y0
 
 
 # --- DF1 dither (error feedback) --------------------------------------------
@@ -316,7 +317,7 @@ def df1_dither_clamp_step(ba, f: int, state: Df1DitherState, x0, u, lo, hi):
     """Clamped dithered DF1 (biquad.rs:532-538)."""
     state, y0 = df1_dither_step(ba, f, state, x0)
     y0 = jnp.clip(y0 + u, lo, hi).astype(jnp.int32)
-    xy = state.xy._replace(y=state.xy.y.at[..., 0].set(y0))
+    xy = state.xy._replace(y=jnp.stack([y0, state.xy.y[..., 1]], axis=-1))
     return state._replace(xy=xy), y0
 
 
@@ -367,8 +368,7 @@ def df1_process_q64(ba, f: int, state, xs, *, unroll: int = 8):
 def _affine_combine(a, b):
     """Compose affine maps s -> M s + v for the 2nd-order feedback
     recurrence, with the 2x2 matrix and 2-vector held as SIX separate
-    (n, ...) component arrays — trailing (2, 2) axes tile terribly on
-    TPU (64x padding), component planes tile perfectly."""
+    (n, ...) component arrays rather than trailing (2, 2) axes."""
     a11, a12, a21, a22, u1, u2 = a
     b11, b12, b21, b22, w1, w2 = b
     return (

@@ -1,6 +1,6 @@
 """Cascaded integrator-comb (CIC) interpolators/decimators.
 
-TPU-native equivalent of reference src/cic.rs.  Order N, comb delay M,
+Equivalent of reference src/cic.rs.  Order N, comb delay M,
 runtime rate change R-1 (R = rate+1 fast samples per slow sample).
 
 The reference is a per-sample `Process` with an index countdown; here
@@ -144,7 +144,7 @@ def decimate_block(state: CicState, x, rate: int, *, axis: int = -1):
     positions 0, R, 2R, ... of the stream continuation.
 
     ``axis=0`` takes time on the leading axis ((t, ...channels) blocks,
-    e.g. straight off the Pallas bank kernels) with no data transpose;
+    e.g. straight off the lane-bank kernels) with no data transpose;
     bit-identical to the channel-last path.
     """
     r = rate + 1

@@ -1,16 +1,16 @@
 """Half-band FIR filters and power-of-two rate-change cascades.
 
-TPU-native equivalent of reference src/hbf.rs.  The reference processes
+Equivalent of reference src/hbf.rs.  The reference processes
 ring-buffered blocks with an explicit scratch pipeline (`Major`/
-`ChunkIn`); on TPU each stage is a vectorized symmetric-FIR over a
+`ChunkIn`); here each stage is a vectorized symmetric-FIR over a
 tail-extended block (overlap-save): the carried state is exactly the
 impulse-response tail (hbf.rs:93-101 `copy_within`), and the convolution
-is M shifted-slice FMAs fused by XLA on the VPU (M = 2..23).
+is M shifted-slice multiply-adds fused by XLA (M = 2..23).
 
 Conventions:
 * time on the LAST axis (lanes) by default; leading axes are channels.
   Every block/cascade also takes ``axis=0`` for a time-major (t, c)
-  layout (shifted slices along sublanes) — used by the fused DDC chain
+  layout (shifted slices along the major axis) — used by the DDC chain
   to skip the (t, c) -> (c, t) transpose.
 * a decimator consumes 2n samples -> n, an interpolator n -> 2n.
 * tap tables `HBF_TAPS` / `HBF_TAPS_98` are the published filter
@@ -90,7 +90,7 @@ def symmetric_fir(taps, x_ext, *, odd: bool, sym: bool, axis: int = -1):
     symmetric).  Taps run small (far from center) to large (center).
 
     ``axis`` selects the time axis: -1 (lanes; channels lead) or 0
-    (time-major (t, c) — shifted slices run along sublanes, letting the
+    (time-major (t, c) — shifted slices run along the major axis, letting the
     chain skip the (t, c) -> (c, t) transpose entirely).
     """
     taps = np.asarray(taps)

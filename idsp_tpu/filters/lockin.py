@@ -1,6 +1,6 @@
 """Lock-in amplifier / demodulator.
 
-TPU-native equivalent of reference src/lockin.rs: mix the input with a
+Equivalent of reference src/lockin.rs: mix the input with a
 local-oscillator IQ, then filter I and Q through two states of ONE
 shared filter config (the canonical coefficient-shared-lanes pattern).
 

@@ -1,6 +1,6 @@
 """Unity-DC-gain 1st/2nd-order integer lowpass.
 
-TPU-native equivalent of reference src/lowpass.rs: i32 I/O with i64
+Equivalent of reference src/lowpass.rs: i32 I/O with i64
 state, a double-update trick that creates a Nyquist zero while keeping
 the LSB significant, and clean saturation toward the i32 range.
 

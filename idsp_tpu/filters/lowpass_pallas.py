@@ -1,10 +1,8 @@
-"""Pallas TPU kernel for the integer lowpass channel bank.
+"""Integer lowpass channel bank on the sequential lane-bank kernel.
 
-Same recipe as the biquad banks (biquad_pallas.py): the whole time loop
-in one Pallas program, channels on (c/128, 128) tiles, the i64 wide
-state (lowpass.rs:13-27) emulated as (hi i32, lo u32) plane pairs.
-The saturating input subtraction (lowpass.rs:55) is an overflow-checked
-i32 subtract.  Bit-identical to `lowpass.block` — equivalence-tested.
+The body is `lowpass.step` (lowpass.rs:48-77, i64 wide state,
+saturating input subtraction), so the bank is bit-identical to
+`lowpass.block`.
 """
 
 from __future__ import annotations
@@ -12,114 +10,33 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
+import numpy as np
 
-from .biquad_pallas import (
-    _add_i64,
-    _as_i32,
-    _as_u32,
-    _bank_call,
-    _mul_i32_i32_to_i64,
-    _seq_bank_kernel,
-    _split_i64_planes,
-    _join_i64_planes,
-)
+from . import lowpass
 from .lowpass import LowpassState
-
-_I32_MIN = -2147483648
-_I32_MAX = 2147483647
+from .seq_bank import seq_bank
 
 
-def _sat_sub(a, b):
-    """i32 ``a - b`` saturating (lowpass.rs:55): overflow iff the signs
-    of a and b differ and the wrapped result's sign differs from a."""
-    r = a - b
-    ov = ((a ^ b) & (a ^ r)) < 0
-    sat = jnp.where(a >= 0, jnp.int32(_I32_MAX), jnp.int32(_I32_MIN))
-    return jnp.where(ov, sat, r)
-
-
-def _lp_body(k_static, n, carry, x0):
-    """One double-update lowpass step (lowpass.rs:48-77) on packed
-    carry rows [p0hi, p0lo] (N=1) or [p0hi, p0lo, p1hi, p1lo] (N=2)."""
-    k0 = jnp.int32(k_static[0])
-    p0 = (carry[0], _as_u32(carry[1]))
-    d = _mul_i32_i32_to_i64(
-        _sat_sub(x0, p0[0]), jnp.full_like(x0, k0)
-    )
-    if n == 1:
-        p0 = _add_i64(p0, d)
-        y = p0[0]
-        p0 = _add_i64(p0, d)
-        return (p0[0], _as_i32(p0[1])), y
-    k1 = jnp.int32(k_static[1])
-    p1 = (carry[2], _as_u32(carry[3]))
-    d = _add_i64(d, _mul_i32_i32_to_i64(p1[0], jnp.full_like(x0, k1)))
-    p1 = _add_i64(p1, d)
-    p0 = _add_i64(p0, p1)
-    y = p0[0]
-    p0 = _add_i64(p0, p1)
-    p1 = _add_i64(p1, d)
-    return (
-        (p0[0], _as_i32(p0[1]), p1[0], _as_i32(p1[1])),
-        y,
-    )
-
-
-def lowpass_bank(k, state: LowpassState, xs, *, time_chunk: int = 256,
-                 unroll: int = 2, dec: int = 1, interpret: bool = False):
-    """Integer lowpass bank (N=1 or N=2), Pallas fast path.
+def lowpass_bank(k, state: LowpassState, xs, *, dec: int = 1,
+                 interpret: bool = False):
+    """Integer lowpass bank (N=1 or N=2).
 
     Args:
       k: (N,) i32 gains (static; `lowpass.gains1/gains2`).
-      state: LowpassState with p (c, N) i64, c % 128 == 0.
+      state: LowpassState with p (c, N) i64.
       xs: (t, c) i32.
-      dec: keep-1-in-dec output decimation in the kernel epilogue
-        (== ``ys[::dec]``); the state carries the full-rate recurrence
-        exactly.
+      dec: keep-1-in-dec output decimation (== ``ys[::dec]``); the state
+        carries the full-rate recurrence exactly.
 
-    Returns (state, ys) bit-identical to `lowpass.block` (decimated
-    when dec > 1); ys is (t // dec, c).
+    Returns (state, ys) bit-identical to `lowpass.block` (decimated when
+    dec > 1); ys is (t // dec, c).
     """
-    import numpy as _np
-
-    k_static = tuple(int(v) for v in _np.asarray(k).reshape(-1))
-    return _lowpass_bank_impl(
-        k_static, state, xs, time_chunk=time_chunk, unroll=unroll,
-        dec=int(dec), interpret=interpret,
-    )
+    k_static = tuple(int(v) for v in np.asarray(k).reshape(-1))
+    return _lowpass_bank(k_static, state, xs, dec=int(dec),
+                         interpret=interpret)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("k_static", "time_chunk", "unroll", "dec",
-                              "interpret")
-)
-def _lowpass_bank_impl(k_static, state: LowpassState, xs, *, time_chunk,
-                       unroll=2, dec=1, interpret=False):
-    t, c = xs.shape
-    assert c % 128 == 0
-    cs = c // 128
-    n = state.p.shape[-1]
-    assert n in (1, 2) and len(k_static) == n
-
-    planes = []
-    for i in range(n):
-        hi, lo = _split_i64_planes(state.p[..., i])
-        planes += [hi, lo]
-    st_in = jnp.stack(planes, axis=0).reshape(2 * n, cs, 128)
-
-    def body(carry, x0, _extras):
-        return _lp_body(k_static, n, carry, x0)
-
-    ys, st_out = _bank_call(
-        _seq_bank_kernel(body, unroll=unroll, dec=dec), st_in,
-        xs.reshape(t, cs, 128),
-        time_chunk=time_chunk, interpret=interpret,
-    )
-    st_out = st_out.reshape(2 * n, c)
-    p = jnp.stack(
-        [_join_i64_planes(st_out[2 * i], st_out[2 * i + 1])
-         for i in range(n)],
-        axis=-1,
-    )
-    return LowpassState(p=p), ys.reshape(t // dec, c)
+@functools.partial(jax.jit, static_argnames=("k", "dec", "interpret"))
+def _lowpass_bank(k, state, xs, *, dec, interpret):
+    step = functools.partial(lowpass.step, np.asarray(k, np.int32))
+    return seq_bank(step, state, xs, dec=dec, interpret=interpret)

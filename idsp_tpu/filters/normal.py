@@ -1,6 +1,6 @@
 """Normal-form (Rader-Gold / coupled) second-order section.
 
-TPU-native equivalent of reference src/iir/normal.rs: a conjugate-pole
+Equivalent of reference src/iir/normal.rs: a conjugate-pole
 rotation update (constant pole resolution across the plane, unlike
 direct forms near the real axis) with a second-order FIR prefix.  The
 state reuses the DF1 layout: y[0], y[1] hold the I/Q components of the

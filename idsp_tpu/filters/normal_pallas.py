@@ -1,15 +1,8 @@
-"""Pallas TPU kernels for the normal-form (Rader-Gold) SOS channel bank.
-
-The coupled conjugate-pole rotation update (reference src/iir/normal.rs:
-38-58) as sequential bank kernels — one float and one fixed-point
-variant, following the `biquad_pallas` recipe (state in VMEM across a
-sequential time grid, channels on (c/128, 128) lane tiles, i64 MACs
-emulated with 16-bit limb products).
-
-The subtraction ``- p_im * y0`` in the y1 update is realized by baking
-``-p_im`` as a static coefficient: multiplication mod 2^64 is a ring
-homomorphism, so ``(-c) * v == -(c * v)`` exactly in the wrapping wide
-accumulator — no dedicated wide subtract needed.
+"""Normal-form (Rader-Gold) SOS channel banks on the sequential
+lane-bank kernel: the coupled conjugate-pole rotation update (reference
+src/iir/normal.rs:38-58), with `normal.step_q` / `normal.step` as the
+kernel body — bit-identical to scanning them (the float bank up to FMA
+contraction on the card).
 """
 
 from __future__ import annotations
@@ -18,138 +11,51 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
+from . import normal
 from .biquad import Df1State
-from .biquad_pallas import (
-    _add_i64,
-    _bank_call,
-    _mac5_q,
-    _mul_coef_i32,
-    _seq_bank_kernel,
-    _shr_i64_to_i32,
-)
-
-_I32_MIN = -2147483648
+from .seq_bank import seq_bank
 
 
 def normal_bank_q(b, p, state: Df1State, xs, f: int = 29, *,
-                  time_chunk: int = 256, unroll: int = 2,
                   interpret: bool = False):
-    """Fixed-point normal-form SOS bank, Pallas fast path.
+    """Fixed-point normal-form SOS bank.
 
     Args:
       b: (3,) i32 Q<f> FIR prefix coefficients (static).
       p: (2,) i32 Q<f> pole (re, im) (static).
-      state: Df1State with x/y of shape (c, 2), c % 128 == 0 — the
-        y rows hold the rotating I/Q components (normal.py docstring).
+      state: Df1State with x/y of shape (c, 2) — the y rows hold the
+        rotating I/Q components (normal.py docstring).
       xs: (t, c) i32.
 
     Returns (state, ys) bit-identical to scanning `normal.step_q`.
     """
-    import numpy as _np
+    b_s = tuple(int(v) for v in np.asarray(b).reshape(-1)[:3])
+    p_s = tuple(int(v) for v in np.asarray(p).reshape(-1)[:2])
+    return _normal_bank_q(b_s, p_s, state, xs, f, interpret=interpret)
 
-    b_static = tuple(int(v) for v in _np.asarray(b).reshape(-1)[:3])
-    p_static = tuple(int(v) for v in _np.asarray(p).reshape(-1)[:2])
-    assert p_static[1] != _I32_MIN, "p_im == i32::MIN has no negation"
-    return _normal_bank_q_impl(
-        b_static, p_static, state, xs, f,
-        time_chunk=time_chunk, unroll=unroll, interpret=interpret,
+
+@functools.partial(jax.jit, static_argnames=("b", "p", "f", "interpret"))
+def _normal_bank_q(b, p, state, xs, f, *, interpret):
+    step = functools.partial(
+        normal.step_q, np.asarray(b, np.int32), np.asarray(p, np.int32), f
     )
+    return seq_bank(step, state, xs, interpret=interpret)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("b_static", "p_static", "f", "time_chunk", "unroll",
-                     "interpret"),
-)
-def _normal_bank_q_impl(b_static, p_static, state: Df1State, xs, f, *,
-                        time_chunk, unroll, interpret):
-    t, c = xs.shape
-    assert c % 128 == 0
-    cs = c // 128
-    p_re, p_im = p_static
-    st_in = jnp.stack(
-        [state.x[..., 0], state.x[..., 1], state.y[..., 0], state.y[..., 1]],
-        axis=0,
-    ).reshape(4, cs, 128)
+def normal_bank_f32(b, p, state: Df1State, xs, *, interpret: bool = False):
+    """Float normal-form SOS bank (normal.rs:38-58); matches
+    `normal.block`."""
+    b_s = tuple(float(v) for v in np.asarray(b).reshape(-1)[:3])
+    p_s = tuple(float(v) for v in np.asarray(p).reshape(-1)[:2])
+    return _normal_bank_f32(b_s, p_s, state, xs, interpret=interpret)
 
-    def body(carry, x0, _extras):
-        # carry rows: [x1, x2, y0, y1] (y0/y1 = I/Q rotating state)
-        x1, x2, y0, y1 = carry
-        # y1' = b0 x0 + b1 x1 + b2 x2 + p_re y1 - p_im y0
-        acc1 = _mac5_q(
-            (b_static[0], b_static[1], b_static[2], p_re, -p_im),
-            x0, x1, x2, y1, y0,
-        )
-        y1n = _shr_i64_to_i32(acc1[0], acc1[1], f)
-        # y0' = p_im y1 + p_re y0  (the emitted output)
-        acc0 = _add_i64(
-            _mul_coef_i32(p_im, y1), _mul_coef_i32(p_re, y0)
-        )
-        y0n = _shr_i64_to_i32(acc0[0], acc0[1], f)
-        return (x0, x1, y0n, y1n), y0n
 
-    ys, st_out = _bank_call(
-        _seq_bank_kernel(body, unroll=unroll), st_in,
-        xs.reshape(t, cs, 128),
-        time_chunk=time_chunk, interpret=interpret,
+@functools.partial(jax.jit, static_argnames=("b", "p", "interpret"))
+def _normal_bank_f32(b, p, state, xs, *, interpret):
+    step = functools.partial(
+        normal.step, np.asarray(b, np.float32), np.asarray(p, np.float32)
     )
-    st_out = st_out.reshape(4, c)
-    new_state = Df1State(
-        x=jnp.stack([st_out[0], st_out[1]], axis=-1),
-        y=jnp.stack([st_out[2], st_out[3]], axis=-1),
-    )
-    return new_state, ys.reshape(t, c)
-
-
-def normal_bank_f32(b, p, state: Df1State, xs, *, time_chunk: int = 256,
-                    interpret: bool = False):
-    """Float normal-form SOS bank (normal.rs:38-58), Pallas fast path.
-
-    unroll=1 like `df1_bank_f32` (FMA contraction stability).  Matches
-    `normal.block` scanned (bit-identical in interpret mode).
-    """
-    import numpy as _np
-
-    b_static = tuple(float(v) for v in _np.asarray(b).reshape(-1)[:3])
-    p_static = tuple(float(v) for v in _np.asarray(p).reshape(-1)[:2])
-    return _normal_bank_f32_impl(
-        b_static, p_static, state, xs,
-        time_chunk=time_chunk, interpret=interpret,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("b_static", "p_static", "time_chunk", "interpret"),
-)
-def _normal_bank_f32_impl(b_static, p_static, state: Df1State, xs, *,
-                          time_chunk, interpret):
-    t, c = xs.shape
-    assert c % 128 == 0
-    cs = c // 128
-    st_in = jnp.stack(
-        [state.x[..., 0], state.x[..., 1], state.y[..., 0], state.y[..., 1]],
-        axis=0,
-    ).reshape(4, cs, 128).astype(jnp.float32)
-
-    def body(carry, x0, _extras):
-        b0, b1, b2 = (jnp.float32(v) for v in b_static)
-        pre, pim = (jnp.float32(v) for v in p_static)
-        x1, x2, y0, y1 = carry
-        # same expression order as normal.step (bit-match with the scan)
-        y1n = b0 * x0 + b1 * x1 + b2 * x2 + pre * y1 - pim * y0
-        y0n = pim * y1 + pre * y0
-        return (x0, x1, y0n, y1n), y0n
-
-    ys, st_out = _bank_call(
-        _seq_bank_kernel(body, unroll=1), st_in,
-        xs.reshape(t, cs, 128).astype(jnp.float32),
-        time_chunk=time_chunk, interpret=interpret,
-    )
-    st_out = st_out.reshape(4, c)
-    new_state = Df1State(
-        x=jnp.stack([st_out[0], st_out[1]], axis=-1),
-        y=jnp.stack([st_out[2], st_out[3]], axis=-1),
-    )
-    return new_state, ys.reshape(t, c)
+    state = jax.tree.map(lambda a: a.astype(jnp.float32), state)
+    return seq_bank(step, state, xs.astype(jnp.float32), interpret=interpret)

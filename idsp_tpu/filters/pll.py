@@ -1,14 +1,14 @@
 """Type-2, order-3 sampled-phase PLL.
 
-TPU-native equivalent of reference src/pll.rs: all wrapping i32/i64
+Equivalent of reference src/pll.rs: all wrapping i32/i64
 arithmetic, Q32<32> lead-lag coefficients, wrap-clamped phase error
 (anti-windup during acquisition), Nyquist zero, wide lead-lag state with
 first-order noise shaping, and a DC pole for the frequency.
 
 The per-sample update is nonlinear (the clamp), so time stays a
-`lax.scan`; banks of PLLs vectorize across channels on the VPU lanes
-(state is 7 words/channel).  Stable for loop gains 7e-5..5e-2 of the
-sample rate (pll.rs:15).
+recurrence; banks of PLLs run channels side by side (state is 7
+words/channel; on the GPU in the lane-bank kernel, `pll_pallas`).
+Stable for loop gains 7e-5..5e-2 of the sample rate (pll.rs:15).
 """
 
 from __future__ import annotations

@@ -1,17 +1,8 @@
-"""Pallas TPU kernel for the type-2 order-3 PLL channel bank.
+"""Type-2 order-3 PLL channel bank on the sequential lane-bank kernel.
 
 The PLL update (reference src/pll.rs:90-107) is nonlinear per sample
-(the wrap-clamp), so time stays sequential; this kernel runs the whole
-time loop inside one Pallas program with the 9-word/channel state
-resident in VMEM, channels on (c/128, 128) tiles — the same recipe as
-`biquad_pallas.df1_bank_q`.
-
-The two i64 state words (lead-lag f0, frequency accumulator f) are
-emulated as (hi i32, lo u32) plane pairs with the limb/carry helpers;
-the noise-shaping term ``(a1 * f0_lo) >> 32`` is the exact high word of
-the u32 x i32 product (pll.rs:99-102).
-
-Bit-identical to `pll.block` (the lax.scan path) — equivalence-tested.
+(the wrap-clamp), so time stays serial; the kernel's body is
+`pll.step`, so the bank is bit-identical to `pll.block`.
 """
 
 from __future__ import annotations
@@ -19,138 +10,28 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
+import numpy as np
 
-from ..ops.unwrap import ClampWrapState
-from .biquad_pallas import (
-    _add_i64,
-    _as_i32,
-    _as_u32,
-    _bank_call,
-    _mul_i32_i32_to_i64,
-    _mul_u32_i32_to_i64,
-    _seq_bank_kernel,
-    _sext32,
-    _split_i64_planes,
-    _join_i64_planes,
-)
+from . import pll
 from .pll import PllState
-
-_I32_MIN = -2147483648
-_I32_MAX = 2147483647
+from .seq_bank import seq_bank
 
 
-def _pll_body(ba, carry, x):
-    """One PLL update (pll.rs:90-107) on packed carry rows
-    [clamp_x0, clamp_state, z0, y0, f0hi, f0lo, fhi, flo, y]."""
-    b0, b1, a1 = (jnp.int32(v) for v in ba)
-    cx0, ccl = carry[0], carry[1]
-    z0, y0 = carry[2], carry[3]
-    f0 = (carry[4], _as_u32(carry[5]))
-    fr = (carry[6], _as_u32(carry[7]))
-    y = carry[8]
-
-    # NCO advance: y += f >> 32 (the frequency high word)
-    y = y + fr[0]
-
-    # wrap-clamped phase error (unwrap.rs:184-194), halved
-    xi = x + y  # wrapping i32
-    delta_nonneg = ((xi - cx0) >= 0).astype(jnp.int32)
-    ge = (xi >= cx0).astype(jnp.int32)
-    wrap = delta_nonneg - ge
-    # == sign(clamp + wrap) on the {-2..2} domain; explicit typed
-    # min/max (jnp.clip's weak-typed scalar path blows the recursion
-    # limit tracing under pallas on the TPU backend)
-    ccl = jnp.maximum(
-        jnp.int32(-1), jnp.minimum(jnp.int32(1), ccl + wrap)
-    )
-    ze = jnp.where(
-        ccl < 0,
-        jnp.int32(_I32_MIN),
-        jnp.where(ccl > 0, jnp.int32(_I32_MAX), xi),
-    )
-    z0_new = ze >> 1
-
-    # Nyquist zero
-    y0_new = z0_new + z0
-
-    # lead-lag: f0 += b0*y0 + b1*y0_old + a1*(f0>>32) + ((a1*f0_lo)>>32)
-    t = _mul_i32_i32_to_i64(jnp.full_like(x, b0), y0_new)
-    t = _add_i64(t, _mul_i32_i32_to_i64(jnp.full_like(x, b1), y0))
-    t = _add_i64(t, _mul_i32_i32_to_i64(jnp.full_like(x, a1), f0[0]))
-    ns_hi, _ = _mul_u32_i32_to_i64(f0[1], jnp.full_like(x, a1))
-    t = _add_i64(t, _sext32(ns_hi))
-    f0_new = _add_i64(f0, t)
-
-    # DC pole
-    fr_new = _add_i64(fr, f0_new)
-
-    new_carry = (xi, ccl, z0_new, y0_new, f0_new[0], _as_i32(f0_new[1]),
-                 fr_new[0], _as_i32(fr_new[1]), y)
-    return new_carry, y
-
-
-def pll_bank(ba, state: PllState, xs, *, time_chunk: int = 256,
-             unroll: int = 2, interpret: bool = False):
-    """PLL channel bank, Pallas fast path.
+def pll_bank(ba, state: PllState, xs, *, interpret: bool = False):
+    """PLL channel bank.
 
     Args:
       ba: (3,) i32 Q32<32> lead-lag coefficients [b0, b1, a1] (static).
-      state: PllState with (c,)-shaped leaves, c % 128 == 0.
+      state: PllState with (c,)-shaped leaves.
       xs: (t, c) i32 wrapping phase inputs.
 
     Returns (state, ys) bit-identical to `pll.block`.
     """
-    import numpy as _np
-
-    ba_static = tuple(int(v) for v in _np.asarray(ba).reshape(-1)[:3])
-    return _pll_bank_impl(
-        ba_static, state, xs, time_chunk=time_chunk, unroll=unroll,
-        interpret=interpret,
-    )
+    ba_static = tuple(int(v) for v in np.asarray(ba).reshape(-1)[:3])
+    return _pll_bank(ba_static, state, xs, interpret=interpret)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("ba_static", "time_chunk", "unroll",
-                              "interpret")
-)
-def _pll_bank_impl(ba_static, state: PllState, xs, *, time_chunk, unroll=2,
-                   interpret=False):
-    t, c = xs.shape
-    assert c % 128 == 0
-    cs = c // 128
-    f0hi, f0lo = _split_i64_planes(state.f0)
-    fhi, flo = _split_i64_planes(state.f)
-    st_in = jnp.stack(
-        [
-            state.clamp.x0,
-            state.clamp.clamp.astype(jnp.int32),
-            state.z0,
-            state.y0,
-            f0hi,
-            f0lo,
-            fhi,
-            flo,
-            state.y,
-        ],
-        axis=0,
-    ).reshape(9, cs, 128)
-
-    def body(carry, x, _extras):
-        return _pll_body(ba_static, carry, x)
-
-    ys, st_out = _bank_call(
-        _seq_bank_kernel(body, unroll=unroll), st_in,
-        xs.reshape(t, cs, 128),
-        time_chunk=time_chunk, interpret=interpret,
-    )
-    st_out = st_out.reshape(9, c)
-    new_state = PllState(
-        clamp=ClampWrapState(x0=st_out[0], clamp=st_out[1].astype(jnp.int8)),
-        z0=st_out[2],
-        y0=st_out[3],
-        f0=_join_i64_planes(st_out[4], st_out[5]),
-        f=_join_i64_planes(st_out[6], st_out[7]),
-        y=st_out[8],
-    )
-    return new_state, ys.reshape(t, c)
+@functools.partial(jax.jit, static_argnames=("ba", "interpret"))
+def _pll_bank(ba, state, xs, *, interpret):
+    step = functools.partial(pll.step, np.asarray(ba, np.int32))
+    return seq_bank(step, state, xs, interpret=interpret)

@@ -1,6 +1,6 @@
 """Reciprocal PLL: lock to noisy quantized timestamps.
 
-TPU-native equivalent of reference src/rpll.rs: consumes optional
+Equivalent of reference src/rpll.rs: consumes optional
 timestamps of a reference edge (at most one per update cycle of
 1 << dt2 counter cycles) and reconstructs the phase and frequency of
 the update rate relative to the reference.

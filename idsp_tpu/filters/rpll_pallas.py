@@ -1,18 +1,10 @@
-"""Pallas TPU kernel for the reciprocal-PLL channel bank.
+"""Reciprocal-PLL channel bank on the sequential lane-bank kernel.
 
 The RPLL update (reference src/rpll.rs:47-77) consumes an *optional*
 timestamp per update cycle; the event-driven input rides the kernel as
-a masked (value, valid) plane pair, exactly like `rpll.step`'s masked
-formulation.  All arithmetic is 32-bit except the single
-``ff(u32) * dx(u32)`` reference-phase product, which uses the exact
-u32 x u32 -> u64 limb helper; the static ``>> shift_frequency`` with
-the rounding bias is resolved at trace time.
-
-Layout: timestamps and valid masks are packed side by side on the
-sublane axis — input (t, 2*cs, 128) rows ``[x | valid]``, output rows
-``[phase | frequency]`` (the `Accu` estimate pair, rpll.rs:76).
-
-Bit-identical to `rpll.block` (the lax.scan path) — equivalence-tested.
+one i64 word per sample, ``(timestamp << 1) | valid``, unpacked in the
+step.  The body is `rpll.step`, so the bank is bit-identical to
+`rpll.block`.
 """
 
 from __future__ import annotations
@@ -22,131 +14,31 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from .biquad_pallas import (
-    _as_i32,
-    _as_u32,
-    _bank_call,
-    _mul_u32_u32_to_u64,
-    _seq_bank_kernel,
-)
+from . import rpll
 from .rpll import RpllConfig, RpllState
+from .seq_bank import seq_bank
 
 
 def rpll_bank(cfg: RpllConfig, state: RpllState, xs, valids, *,
-              time_chunk: int = 256, unroll: int = 2,
               interpret: bool = False):
-    """RPLL channel bank, Pallas fast path.
+    """RPLL channel bank.
 
     Args:
       cfg: static RpllConfig (dt2, shift_frequency, shift_phase).
-      state: RpllState with (c,) fields, c % 128 == 0.
+      state: RpllState with (c,) fields.
       xs: (t, c) i32 timestamps.
       valids: (t, c) bool (or 0/1 int) timestamp-present mask.
 
     Returns (state, (phase, frequency)) bit-identical to `rpll.block`.
     """
-    return _rpll_bank_impl(
-        int(cfg.dt2), int(cfg.shift_frequency), int(cfg.shift_phase),
-        state, xs, valids,
-        time_chunk=time_chunk, unroll=unroll, interpret=interpret,
-    )
+    return _rpll_bank(cfg, state, xs, valids, interpret=interpret)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("dt2", "sf", "sp", "time_chunk", "unroll", "interpret"),
-)
-def _rpll_bank_impl(dt2, sf, sp, state: RpllState, xs, valids, *,
-                    time_chunk, unroll, interpret):
-    t, c = xs.shape
-    assert c % 128 == 0
-    cs = c // 128
-    assert sf >= dt2 and sp >= dt2 and 0 < sf < 64
+@functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
+def _rpll_bank(cfg, state, xs, valids, *, interpret):
+    def step(s, word):
+        x = (word >> 1).astype(jnp.int32)
+        return rpll.step(cfg, s, x, (word & 1) != 0)
 
-    bias = 1 << (sf - 1)
-
-    def body(carry, row, _extras):
-        # jnp constants must be created INSIDE the kernel trace (a
-        # closure-captured traced array is rejected by pallas_call)
-        bias_hi = jnp.uint32(bias >> 32)
-        bias_lo = jnp.uint32(bias & 0xFFFFFFFF)
-        p_ref = jnp.uint32((1 << (32 + dt2 - sf)) & 0xFFFFFFFF)
-        dt_mask = jnp.int32((1 << dt2) - 1)
-        # carry rows (each (2*cs, 128), matching the input's sublane
-        # count as _bank_call requires): [x | ff], [f | y]
-        # (ff/f ride as u32 bit patterns)
-        x_prev, ff = carry[0][:cs], carry[0][cs:]
-        f, y = carry[1][:cs], carry[1][cs:]
-        x = row[:cs]
-        valid = row[cs:] != 0
-
-        ffu = _as_u32(ff)
-        fu = _as_u32(f)
-
-        # advance phase (rpll.rs:49): y += f (wrapping i32)
-        y = y + f
-
-        # frequency lock (rpll.rs:52-60): reference phase over dx at the
-        # current estimate, rounded half up, against the ideal 2^(32+dt2)
-        dx = x - x_prev
-        hi, lo = _mul_u32_u32_to_u64(ffu, _as_u32(dx))
-        lo2 = lo + bias_lo
-        hi = hi + bias_hi + (lo2 < lo).astype(jnp.uint32)
-        lo = lo2
-        if sf < 32:
-            p_sig = (lo >> sf) | (hi << (32 - sf))
-        elif sf == 32:
-            p_sig = hi
-        else:
-            p_sig = hi >> (sf - 32)
-        ff2 = ffu + (p_ref - p_sig)
-
-        # phase lock (rpll.rs:62-71): predicted reference phase "now"
-        # (frequency estimate from BEFORE this update) vs the estimate
-        dt = _as_u32(-x) & _as_u32(dt_mask)
-        y_ref = _as_i32((fu >> dt2) * dt)
-        dy = (y_ref - y) >> (sp - dt2)
-        f2 = ff2 + _as_u32(dy)
-
-        x_new = jnp.where(valid, x, x_prev)
-        ff_new = jnp.where(valid, _as_i32(ff2), ff)
-        f_new = jnp.where(valid, _as_i32(f2), f)
-        out = jnp.concatenate([y, f_new], axis=0)
-        return (
-            jnp.concatenate([x_new, ff_new], axis=0),
-            jnp.concatenate([f_new, y], axis=0),
-        ), out
-
-    st_in = jnp.stack(
-        [
-            jnp.concatenate(
-                [state.x.reshape(cs, 128),
-                 _as_i32(state.ff).reshape(cs, 128)], axis=0
-            ),
-            jnp.concatenate(
-                [_as_i32(state.f).reshape(cs, 128),
-                 state.y.reshape(cs, 128)], axis=0
-            ),
-        ],
-        axis=0,
-    )  # (2, 2*cs, 128)
-    xs3 = jnp.concatenate(
-        [
-            xs.reshape(t, cs, 128),
-            valids.astype(jnp.int32).reshape(t, cs, 128),
-        ],
-        axis=1,
-    )
-    ys3, st_out = _bank_call(
-        _seq_bank_kernel(body, unroll=unroll), st_in, xs3,
-        time_chunk=time_chunk, interpret=interpret,
-    )
-    new_state = RpllState(
-        x=st_out[0, :cs].reshape(c),
-        ff=_as_u32(st_out[0, cs:]).reshape(c),
-        f=_as_u32(st_out[1, :cs]).reshape(c),
-        y=st_out[1, cs:].reshape(c),
-    )
-    phase = ys3[:, :cs].reshape(t, c)
-    freq = ys3[:, cs:].reshape(t, c)
-    return new_state, (phase, freq)
+    words = (xs.astype(jnp.int64) << 1) | (valids != 0).astype(jnp.int64)
+    return seq_bank(step, state, words, interpret=interpret)

@@ -1,6 +1,6 @@
 """Chamberlin state-variable filter (float).
 
-TPU-native equivalent of reference src/iir/svf.rs: simultaneous
+Equivalent of reference src/iir/svf.rs: simultaneous
 lowpass/highpass/bandpass (and band-reject = hp + lp) outputs from a
 3-element state.  f = 2*sin(pi*f0), q = 1/Q.
 """

@@ -1,15 +1,8 @@
-"""Pallas TPU kernel for the Chamberlin SVF channel bank.
+"""Chamberlin SVF channel bank on the sequential lane-bank kernel.
 
-Same recipe as `biquad_pallas.df1_bank_f32`: the whole time loop inside
-one Pallas program, the 3-word/channel state (svf.rs:47-60) resident in
-VMEM, channels on (c/128, 128) tiles.  The simultaneous
-lowpass/highpass/bandpass/band-reject outputs of the reference are
-exposed as a static ``output`` selector (the state always carries all
-three responses, so the final state still provides the others).
-
-unroll=1: float MACs contract to FMAs differently across unrolled
-instances (see `df1_bank_f32`), and the svf update is a serial
-dependency chain anyway.
+The body is `svf.step` (svf.rs:47-60).  The simultaneous lowpass /
+highpass / bandpass / band-reject outputs are exposed as a static
+``output`` selector; the final state carries all three responses.
 """
 
 from __future__ import annotations
@@ -18,63 +11,42 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-from .biquad_pallas import _bank_call, _seq_bank_kernel
+from . import svf
+from .seq_bank import seq_bank
 from .svf import SvfState
 
 _OUTPUTS = ("lp", "hp", "bp", "br")
 
 
 def svf_bank(f, qi, state: SvfState, xs, *, output: str = "lp",
-             time_chunk: int = 256, interpret: bool = False):
-    """Float SVF bank, Pallas fast path.
+             interpret: bool = False):
+    """Float SVF bank.
 
     Args:
       f, qi: static floats (`svf.coefficients`), shared across channels.
-      state: SvfState with lp/hp/bp of shape (c,), c % 128 == 0.
+      state: SvfState with lp/hp/bp of shape (c,).
       xs: (t, c) f32.
-      output: which simultaneous response to emit ("lp", "hp", "bp",
-        or "br" = hp + lp, svf.rs:19-22).
+      output: which response to emit ("lp", "hp", "bp", or "br" =
+        hp + lp, svf.rs:19-22).
 
     Returns (state, ys) matching the corresponding field of
     ``svf.block(f, qi, state, xs)`` (bit-identical in interpret mode;
-    FMA-contraction-tolerance on device, like every float kernel).
+    up to FMA contraction on the card, like every float bank).
     """
-    return _svf_bank_impl(
-        float(f), float(qi), state, xs, str(output),
-        time_chunk=time_chunk, interpret=interpret,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("f", "qi", "output", "time_chunk", "interpret"),
-)
-def _svf_bank_impl(f, qi, state: SvfState, xs, output, *, time_chunk,
-                   interpret):
-    t, c = xs.shape
-    assert c % 128 == 0
     assert output in _OUTPUTS
-    cs = c // 128
-    st_in = jnp.stack([state.lp, state.hp, state.bp], axis=0).reshape(
-        3, cs, 128
-    ).astype(jnp.float32)
+    return _svf_bank(float(f), float(qi), state, xs, str(output),
+                     interpret=interpret)
 
-    def body(carry, x0, _extras):
-        fv = jnp.float32(f)
-        qv = jnp.float32(qi)
-        lp_old, _hp_old, bp_old = carry
-        lp = bp_old * fv + lp_old
-        hp = x0 - lp - bp_old * qv
-        bp = hp * fv + bp_old
-        y = {"lp": lp, "hp": hp, "bp": bp, "br": hp + lp}[output]
-        return (lp, hp, bp), y
 
-    ys, st_out = _bank_call(
-        _seq_bank_kernel(body, unroll=1), st_in,
-        xs.reshape(t, cs, 128).astype(jnp.float32),
-        time_chunk=time_chunk, interpret=interpret,
-    )
-    st_out = st_out.reshape(3, c)
-    new_state = SvfState(lp=st_out[0], hp=st_out[1], bp=st_out[2])
-    return new_state, ys.reshape(t, c)
+@functools.partial(jax.jit, static_argnames=("f", "qi", "output", "interpret"))
+def _svf_bank(f, qi, state, xs, output, *, interpret):
+    fv, qv = np.float32(f), np.float32(qi)
+
+    def step(s, x):
+        s, _ = svf.step(fv, qv, s, x)
+        return s, s.br if output == "br" else getattr(s, output)
+
+    state = jax.tree.map(lambda a: a.astype(jnp.float32), state)
+    return seq_bank(step, state, xs.astype(jnp.float32), interpret=interpret)

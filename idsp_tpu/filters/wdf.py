@@ -1,6 +1,6 @@
 """Wave-digital allpass filters (two-port adapter chains).
 
-TPU-native equivalent of reference src/iir/wdf.rs: a chain of two-port
+Equivalent of reference src/iir/wdf.rs: a chain of two-port
 adapters, each one of eight architectures (A/B/B1/X/C/C1/D/Z) chosen so
 the quantized coefficient lands in -0.5 <= a <= 0 (which just fits
 Q32<32>).  Combined in complementary pairs they form very cheap

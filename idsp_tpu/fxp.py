@@ -1,6 +1,6 @@
 """Fixed-point (Q-format) tensor numerics.
 
-TPU-native equivalent of the reference `dsp-fixedpoint` crate
+Equivalent of the reference `dsp-fixedpoint` crate
 (dsp-fixedpoint/src/lib.rs, ops.rs).  Instead of a wrapper type, Q-format
 values are plain integer arrays plus a static fractional-bit count ``f``
 threaded through as a Python int.  All semantics are bit-exact with the
@@ -131,7 +131,7 @@ def _mul_i64_wide(a, b):
 
     32-bit limb decomposition of the unsigned product plus the two's-
     complement correction ``hi -= (a<0 ? b : 0) + (b<0 ? a : 0)`` — the
-    XLA-graph analog of the in-kernel limb MACs (biquad_pallas Q64) and
+    XLA-graph form of the 128-bit MAC (also the lane-bank Q64 body) and
     native/golden.c's __int128 model.
     """
     a = jnp.asarray(a, jnp.int64)

@@ -4,7 +4,7 @@ The reference lifts processors over `Option<X>` streams and enforces a
 runtime exactly-one-tick contract on chunked decimation
 (dsp-process/src/adapters.rs:26-35 `Interpolator`, :70-83 `Downsample`,
 :107-118 `Hold`, :157-222 `Decimator`/`TryDecimator` with
-`DecimatorError::{NoTick, ExtraTick}`, :240-257 `Map`).  On TPU an
+`DecimatorError::{NoTick, ExtraTick}`, :240-257 `Map`).  Here an
 `Option<X>` stream is a pair of dense arrays ``(valid: bool, value)``
 (`Masked`); XLA cannot raise, so contract violations become per-frame
 ERROR CODES the caller checks (the reference's `TryDecimator` analog) —
@@ -69,7 +69,7 @@ def _hold_op(a, b):
 def hold(carry, m: Masked, *, axis: int = -1):
     """Zero-order hold over an Option stream (adapters.rs:107-118):
     each output is the most recent valid value, starting from
-    ``carry``.  Parallel (associative scan), O(t log t) — the TPU form
+    ``carry``.  Parallel (associative scan), O(t log t) — the array form
     of the per-sample `if let Some(x) { self.0 = x }`.
 
     Returns (new_carry, y) with y dense, same shape as ``m.value``.
@@ -135,7 +135,7 @@ def try_decimate(m: Masked, r: int, *, axis: int = -1):
     assert t % r == 0 and r > 0
     vf = valid.reshape(*valid.shape[:-1], t // r, r)
     xf = value.reshape(*value.shape[:-1], t // r, r)
-    # first-valid via a static select chain (gathers are slow on TPU)
+    # first-valid via a static select chain (no gather)
     y = xf[..., r - 1]
     for j in range(r - 2, -1, -1):
         y = jnp.where(vf[..., j], xf[..., j], y)

@@ -1,1 +1,1 @@
-"""Elementwise/LUT scalar kernels (reference L2), vectorized for the VPU."""
+"""Elementwise/LUT scalar kernels (reference L2), vectorized."""

@@ -1,7 +1,7 @@
 """Wrapping phase accumulator — closed form.
 
 The reference `Accu` (src/accu.rs:15-62) is a per-sample iterator
-``state += step``.  On TPU the whole phase ramp is computed in closed
+``state += step``.  Here the whole phase ramp is computed in closed
 form — ``phase0 + step * (1..n)`` with wrapping i32 arithmetic — which is
 embarrassingly parallel and the key reformulation that lets the DDS run
 at block rate instead of sample rate.
@@ -45,8 +45,7 @@ def ramp_t(state, step, n: int, *, dtype=jnp.int32):
 
     Identical values to ``ramp(...).swapaxes(-1, -2)`` but built
     directly in (n, ...) layout — the swapaxes form materializes a
-    full transposed copy (profiled ~1.6 ms per (65536, 2048) block on
-    v5e), this one fuses into its consumer.
+    full transposed copy, this one fuses into its consumer.
     """
     state = jnp.asarray(state, dtype=dtype)
     step = jnp.asarray(step, dtype=dtype)

@@ -1,6 +1,6 @@
 """Complex arithmetic on last-axis-2 arrays and (re, im) pairs.
 
-TPU-native equivalent of reference src/complex.rs.  Rather than a wrapper
+Equivalent of reference src/complex.rs.  Rather than a wrapper
 type, complex tensors are either a (re, im) tuple of arrays (preferred:
 keeps XLA layouts simple and fuses well) or an array with a trailing
 length-2 axis.  The fixed-point late-quantize multiply

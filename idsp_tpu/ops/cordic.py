@@ -1,9 +1,9 @@
 """Generic 30-iteration CORDIC (circular/hyperbolic/linear, rotate/vector).
 
-TPU-native equivalent of reference src/cordic.rs:13-107.  The iteration
+Equivalent of reference src/cordic.rs:13-107.  The iteration
 count and the hyperbolic k -> 3k+1 repeat schedule are static, so the
 whole loop unrolls at trace time into 30-34 vectorized iterations; each
-iteration is a pair of shifts, adds, and a select — pure VPU work over
+iteration is a pair of shifts, adds, and a select — pure elementwise work over
 any batch shape.  Used mainly as a validation oracle and for
 magnitude/phase where the faster `cossin`/`atan2` paths don't apply.
 

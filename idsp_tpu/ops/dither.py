@@ -1,13 +1,13 @@
 """Dither PRNGs: xorshift32, uniform bytes, triangular (TPDF) dither.
 
-TPU-native equivalent of reference src/dither.rs.  The xorshift32
+Equivalent of reference src/dither.rs.  The xorshift32
 recurrence (Marsaglia 13/17/5, dither.rs:24-31) is *linear over GF(2)*,
 so a whole block of states can be produced with a logarithmic-depth
 doubling scheme instead of a sequential scan: starting from the seed
 state vector, repeatedly apply the 2^k-step transition (itself just k
 squarings of the xorshift update on u32 words) to double the number of
 known states.  This keeps the generator bit-exact with the reference
-sequence while running wide on the VPU.
+sequence while running wide across lanes.
 """
 
 from __future__ import annotations

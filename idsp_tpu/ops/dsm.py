@@ -1,6 +1,6 @@
 """MASH-(1)^K delta-sigma modulator.
 
-TPU-native equivalent of reference src/dsm.rs:22-58.  The accumulator
+Equivalent of reference src/dsm.rs:22-58.  The accumulator
 chain is K cascaded wrapping u32 integrators whose carries drive a
 carry-difference recombination network.  Stage ``a[0]`` is a plain
 cumulative sum of the input; each later stage integrates the previous

@@ -1,8 +1,7 @@
 """Coarse/fine factored local oscillator — the documented fast LO path.
 
 The exact NCO (`ops.trig.cossin`, reference src/cossin.rs:14-67) costs a
-128-way compare/select chain per sample on TPU; profiling shows it is
-~half of the headline DDC chain (ROADMAP round 2).  This module is the
+LUT lookup, interpolation and octant fold per sample.  This module is the
 framework's sanctioned SNR-gated fast path (cf. the reference's own
 quality-tiered tap sets, src/hbf.rs:238-349): factor the phase ramp by
 angle addition and replace the per-sample table lookup with one complex
@@ -18,8 +17,8 @@ with ``w = 2*pi/2^32``.  Only ``t/k + k`` trig evaluations per channel
 remain (vs ``t``); at t=32768, k=128 that is a 90x reduction.  The
 factor tables are tiny ((t/k, c) and (k, c)) and are evaluated from
 exact wrapping int32 phase arithmetic with f32 trig by default (~2e-7
-rad per factor; `trig_dtype=jnp.float64` reaches ~1e-16 but f64 trig
-is emulated on TPU), plus the f32 rounding of the per-sample complex
+rad per factor; `trig_dtype=jnp.float64` reaches ~1e-16 at the cost of
+f64 trig), plus the f32 rounding of the per-sample complex
 multiply — both far *below* the exact LUT path's 4e-6 RMS
 interpolation error.  The fast LO is
 therefore gated by the reference's spectral acceptance suite (SFDR >
@@ -47,7 +46,7 @@ AMPLITUDE = float(2**31 - 2**15) / 2**32
 def round_half_away(v):
     """Round-half-away-from-zero on f32 (the fxp float->Q convention,
     fxp.py / lib.rs:361-376), written with floor/where only so the same
-    expression lowers inside Mosaic kernels."""
+    expression lowers in any backend."""
     return jnp.where(
         v >= 0,
         jnp.floor(v + jnp.float32(0.5)),
@@ -75,7 +74,7 @@ def fastlo_tables(phase0, steps, t: int, k: int, *,
       k: fine-table length (pick = the kernel time chunk).
       trig_dtype: dtype for the trig evaluation of the tiny tables
         (float32 default, ~2e-7 rad, passes every reference gate with
-        margin and avoids emulated f64 trig on TPU; float64 available
+        margin and avoids f64 trig; float64 available
         for reference-quality tables).
 
     Returns (ca, sa, cb, sb): coarse (t//k, c) and fine (k, c) float32

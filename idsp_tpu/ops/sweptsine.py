@@ -1,6 +1,6 @@
 """Exponential swept-sine stimulus generator and inverse filter.
 
-TPU-native equivalent of reference src/sweptsine.rs.  The sweep
+Equivalent of reference src/sweptsine.rs.  The sweep
 recurrence ``state += rate * ((state + 2^31) >> 32)`` has a
 state-dependent increment (a built-in first-order delta-sigma of the
 exponential), so the frequency track is generated with a `lax.scan`

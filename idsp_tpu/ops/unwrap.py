@@ -1,6 +1,6 @@
 """Phase wrap detection, unwrapping, and wrap-to-saturation mapping.
 
-TPU-native equivalent of reference src/unwrap.rs.  The per-sample
+Equivalent of reference src/unwrap.rs.  The per-sample
 `Unwrapper` recurrence is linear (extended phase = cumulative sum of
 wrapped diffs), so the block path is a closed-form ``cumsum`` —
 an associative scan XLA parallelizes — rather than a sequential loop.

@@ -1,7 +1,7 @@
 """Scale-out: mesh sharding over channels and time blocks.
 
 The reference is single-core (SURVEY.md §5: no NCCL/MPI analog); this
-package is the new, first-class scale-out dimension of the TPU build:
+package is the new, first-class scale-out dimension:
 
 * **Channel parallelism** (`Lanes` analog): shard independent DSP
   channels over a mesh axis — pure data parallelism, no communication.
@@ -14,8 +14,8 @@ package is the new, first-class scale-out dimension of the TPU build:
 * **Pipeline parallelism**: cascade stages placed on successive devices
   (HBF cascades).
 
-All collectives are XLA (`ppermute`, `psum`, `all_gather`) over
-ICI-mapped mesh axes.
+All collectives are XLA (`ppermute`, `psum`, `all_gather`), which
+the GPU backend hands to NCCL.
 """
 
 from . import distributed

@@ -1,9 +1,9 @@
 """Multi-host (DCN) initialization helpers.
 
-The reference is single-core (SURVEY.md §5: no NCCL/MPI analog).  On
-TPU pods, cross-host scale-out is `jax.distributed` + a global Mesh:
-each host contributes its local chips, XLA routes collectives over ICI
-within a slice and DCN across hosts.  These helpers make that a
+The reference is single-core (SURVEY.md §5: no NCCL/MPI analog).
+Cross-host scale-out is `jax.distributed` + a global Mesh: each host
+contributes its local cards, and XLA hands collectives to NCCL (NVLink
+within a host, the network across hosts).  These helpers make that a
 one-liner while staying inert on a single host (the only configuration
 testable in this environment — see BASELINE.md north star #2 for the
 ≥80% scaling target these feed).
@@ -40,9 +40,9 @@ def initialize_from_env(
 
     Detection order: explicit args, then the standard launcher env vars
     (`JAX_COORDINATOR_ADDRESS`/`COORDINATOR_ADDRESS`, `JAX_NUM_PROCESSES`
-    / `NUM_PROCESSES`, `JAX_PROCESS_ID`/`PROCESS_ID`).  On TPU pods with
-    the cloud metadata service, bare `jax.distributed.initialize()`
-    autodetects everything, so any partial env is forwarded as-is.
+    / `NUM_PROCESSES`, `JAX_PROCESS_ID`/`PROCESS_ID`); any partial env
+    is forwarded as-is.  Without a cluster launcher, pass the
+    coordinator address, process count and process id explicitly.
 
     Returns True if `jax.distributed.initialize` was called, False when
     running single-process (no env, no args) — in which case nothing is

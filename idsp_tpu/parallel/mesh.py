@@ -10,9 +10,10 @@ from jax.sharding import Mesh
 def make_mesh(axis_sizes: dict[str, int], *, devices=None) -> Mesh:
     """Build a Mesh with named axes from a {name: size} mapping.
 
-    Sizes must multiply to the device count used.  Axis order follows the
-    dict order; put the fastest-communicating axis (channel/dp) last so
-    it maps to adjacent devices.
+    Sizes must multiply to the device count used; the first that many
+    devices are laid out in the dict's axis order.  Every card of a host
+    reaches every other at the same rate, so the shape follows the
+    algorithm alone.
     """
     if devices is None:
         devices = jax.devices()

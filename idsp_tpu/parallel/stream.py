@@ -268,8 +268,7 @@ def sharded_df1_q_relay(ba, state, xs, f: int, axis_name: str, *,
     return global_out, ys
 
 
-def sharded_hbf_dec(taps, state, x_local, axis_name: str, *,
-                    use_rdma: bool = False, rdma_interpret=None):
+def sharded_hbf_dec(taps, state, x_local, axis_name: str):
     """Time-sharded half-band decimate-by-2 with overlap-save halos.
 
     The reference carries the FIR tail across blocks inside one core
@@ -283,8 +282,6 @@ def sharded_hbf_dec(taps, state, x_local, axis_name: str, *,
 
     Args:
       x_local: (..., t_loc) this device's time shard, t_loc even.
-      use_rdma: move the halo with the Pallas `make_async_remote_copy`
-        kernel (parallel/halo_rdma.py) instead of `ppermute`.
 
     Returns (new_state_global, y_local (..., t_loc // 2)).
     """
@@ -300,14 +297,7 @@ def sharded_hbf_dec(taps, state, x_local, axis_name: str, *,
 
     xt = jnp.moveaxis(x_local, -1, 0)
     assert x_local.shape[-1] % 2 == 0 and x_local.shape[-1] >= h
-    if use_rdma:
-        from .halo_rdma import halo_exchange_prev_rdma
-
-        halo_t = halo_exchange_prev_rdma(
-            xt, axis_name, h, interpret=rdma_interpret
-        )
-    else:
-        halo_t = halo_exchange_prev(xt, axis_name, h)
+    halo_t = halo_exchange_prev(xt, axis_name, h)
     halo = jnp.moveaxis(halo_t, 0, -1)  # (..., h) preceding samples
 
     # Blocks start at even global indices (t_loc even), so halo[0] is an

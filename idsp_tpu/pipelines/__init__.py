@@ -1,1 +1,1 @@
-"""End-to-end DSP pipelines (the reference's examples, TPU-first)."""
+"""End-to-end DSP pipelines (the reference's examples)."""

@@ -1,11 +1,11 @@
 """Maximally decimated polyphase analysis channel bank.
 
-TPU-native equivalent of reference examples/polyphase_channelizer.rs,
+Equivalent of reference examples/polyphase_channelizer.rs,
 generalized from the fixed 4-channel DFT4 to any power-of-two M (the
 BASELINE #5 wideband bank uses M=1024): the polyphase FIR is M parallel
 decimated FIRs (one per phase) over the frame axis — shifted-slice FMAs
 like the HBF stages — and the DFT across channels is a matmul against
-the M x M DFT matrix (MXU) or an FFT for large M.
+the M x M DFT matrix or an FFT for large M.
 
 Sign convention matches the reference's hand-unrolled DFT4
 (polyphase_channelizer.rs:77-101): y[m] = sum_k x_k * exp(-j*2*pi*k*m/M)
@@ -46,6 +46,14 @@ def init(m: int = 4, taps: int = 8, shape=(), dtype=jnp.float32) -> BankState:
     return BankState(hist=jnp.zeros(shape + (taps - 1, m, 2), dtype))
 
 
+def _precision(dtype):
+    """f32 operands multiply in full f32 (the GPU default would round
+    them to TF32); bf16 operands are the explicit fast opt-in."""
+    if jnp.dtype(dtype) == jnp.float32:
+        return jax.lax.Precision.HIGHEST
+    return jax.lax.Precision.DEFAULT
+
+
 @lru_cache(maxsize=None)
 def _dft_matrix(m: int) -> np.ndarray:
     """(m, m) forward (negative-exponent) DFT matrix."""
@@ -56,9 +64,7 @@ def _dft_matrix(m: int) -> np.ndarray:
 
 class PlanesState(NamedTuple):
     """Polyphase FIR history as separate I/Q planes: (..., taps-1, m)
-    each — the TPU-native layout (a trailing (m, 2) axis pair tiles the
-    2 onto the 128-lane axis and pads 64x, see CLAUDE.md; planes put m
-    on lanes and frames on sublanes)."""
+    each (m contiguous, frames major; no trailing size-2 axis)."""
 
     hist_r: jax.Array
     hist_i: jax.Array
@@ -72,42 +78,25 @@ def init_planes(m: int = 4, taps: int = 8, shape=(),
 
 def channelize_planes(state: PlanesState, zr, zi, proto=None, *,
                       m: int = 4, taps: int = 8, dft: str = "matmul",
-                      twiddle_dtype=jnp.float32, impl: str = "xla"):
+                      twiddle_dtype=jnp.float32):
     """Plane-layout analysis bank.
 
     Args:
       zr, zi: (..., n, m) I/Q planes of the frame stream (m polyphase
-        branches on the lane axis).
-      dft: "matmul" (four real (n,m)x(m,m) MXU matmuls) or "fft".
-      twiddle_dtype: matmul-path precision.  f32 keeps both operands
-        f32; bf16 rounds the DFT matrix AND the FIR-accumulated data
-        planes to bf16 (the matmul only hits the bf16 MXU rate when
-        both inputs are bf16), i.e. ~2^-8 relative error on each —
-        fine for the reference's >=10x bin-power gate
-        (polyphase_channelizer.rs:166-178) but NOT for
-        high-dynamic-range bins; opt-in for that reason.
-      impl: "xla" (this composition) or "fused" — the one-kernel
-        Pallas path (`channelizer_pallas.channelize_fused`: FIR +
-        cast + MXU DFT, ~76% of the MXU roofline bound at M=1024 vs
-        ~8% for the XLA path, benches/ROOFLINE.md).  The fused path
-        matches this one to f32 contraction order (tolerance-gated,
-        never bit-equal — CLAUDE.md round-3 FMA lesson) and requires
-        dft="matmul", 2-D (n, m) planes, m % 128 == 0, n % 8 == 0,
-        and a TPU backend; it raises otherwise.
+        branches on the minor axis).
+      dft: "matmul" (one real (n, 2m) x (2m, 2m) block matmul) or "fft".
+      twiddle_dtype: matmul-path precision.  f32 runs the product in
+        full f32 (``Precision.HIGHEST``: no TF32 rounding of the
+        operands); bf16 rounds the DFT matrix AND the FIR-accumulated
+        data planes to bf16, i.e. ~2^-8 relative error on each — fine
+        for the reference's >=10x bin-power gate
+        (polyphase_channelizer.rs:166-178) but NOT for high-dynamic-range
+        bins; opt-in for that reason.
 
     Returns (state, yr, yi) with y planes shaped like the inputs.
     The math matches `channelize` exactly (same FIR order, same
     einsum contractions) — only the memory layout differs.
     """
-    if impl == "fused":
-        if dft != "matmul":
-            raise ValueError("impl='fused' supports dft='matmul' only")
-        from .channelizer_pallas import channelize_fused
-
-        return channelize_fused(state, zr, zi, proto, m=m, taps=taps,
-                                twiddle_dtype=twiddle_dtype)
-    if impl != "xla":
-        raise ValueError(f"unknown impl {impl!r}")
     if proto is None:
         proto = prototype(m, taps)
     coeff = np.asarray(proto, np.float32).reshape(taps, m)
@@ -140,10 +129,8 @@ def channelize_planes(state: PlanesState, zr, zi, proto=None, *,
     # DFT across the channel axis: y[m] = sum_k x[k] e^{-2pi i k m / M},
     # as ONE real (n, 2m) x (2m, 2m) block matmul
     #   [yr yi] = [ar ai] @ [[wr, wi], [-wi, wr]]
-    # — same FLOPs as the four (n,m)x(m,m) real matmuls but bigger K/N
-    # tiles for the MXU and a single pass over the planes (measured
-    # ~25-35% faster at M=1024, scripts/tpu_chan_probe2.py, and 1-ulp
-    # identical).  The plane dataflow still matches the tensor-parallel
+    # — same FLOPs as the four (n,m)x(m,m) real matmuls, one pass over
+    # the planes.  The plane dataflow still matches the tensor-parallel
     # path `channelize_tp` (tested in tests/test_aux.py).
     w = _dft_matrix(m)
     wr = np.real(w).astype(np.float32)
@@ -152,7 +139,8 @@ def channelize_planes(state: PlanesState, zr, zi, proto=None, *,
     wblk = jnp.asarray(np.block([[wr, wi], [-wi, wr]])).astype(tw)
     ab = jnp.concatenate([accr, accti], axis=-1).astype(tw)
     y = jnp.einsum("...k,km->...m", ab, wblk,
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32,
+                   precision=_precision(tw))
     return (new_state, y[..., :m], y[..., m:])
 
 
@@ -165,11 +153,10 @@ def channelize(state: BankState, x, proto=None, *, m: int = 4, taps: int = 8,
     the same shape: per frame, M channel IQ pairs.
 
     Internally this splits into I/Q planes at the boundary and runs
-    `channelize_planes` (the trailing (m, 2) layout tiles the 2 onto
-    the 128-lane axis — 64x pad); the stack/split costs one transpose
-    pair, so large-M callers should feed planes directly.
+    `channelize_planes`; the stack/split costs one transpose pair, so
+    large-M callers should feed planes directly.
 
-    ``dft``: "matmul" (real-plane MXU matmuls — exact control of
+    ``dft``: "matmul" (real-plane matmuls in full f32 — exact control of
     summation order, matches `channelize_tp`) or "fft" (jnp.fft along
     the branch axis — O(M log M); same negative-exponent convention,
     differs from matmul only by f32 summation order).
@@ -245,11 +232,12 @@ def channelize_tp(state: BankState, x_local, axis_name: str, *, m: int,
     )
     zr = acc[..., 0]
     zi = acc[..., 1]  # (..., n, m_loc)
-    yr = _jnp.einsum("...k,km->...m", zr, wr) - _jnp.einsum(
-        "...k,km->...m", zi, wi
+    hi = jax.lax.Precision.HIGHEST
+    yr = _jnp.einsum("...k,km->...m", zr, wr, precision=hi) - _jnp.einsum(
+        "...k,km->...m", zi, wi, precision=hi
     )
-    yi = _jnp.einsum("...k,km->...m", zr, wi) + _jnp.einsum(
-        "...k,km->...m", zi, wr
+    yi = _jnp.einsum("...k,km->...m", zr, wi, precision=hi) + _jnp.einsum(
+        "...k,km->...m", zi, wr, precision=hi
     )
     stacked = jnp.stack([yr, yi], axis=-1)
     if out_mode == "scatter":

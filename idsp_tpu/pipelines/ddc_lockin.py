@@ -1,6 +1,6 @@
 """Real-input DDC / lock-in (float path).
 
-TPU-native equivalent of reference examples/ddc_lockin.rs: quadrature
+Equivalent of reference examples/ddc_lockin.rs: quadrature
 mix with a float LO then a shared-coefficient lowpass over the I/Q
 lanes (the `Split::lanes()` pattern — one config, two states — becomes
 a trailing lane axis the elementwise biquad broadcasts over).

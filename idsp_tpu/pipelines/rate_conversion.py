@@ -45,50 +45,18 @@ def round_trip(state: RateConvState, x, taps=hbf.HBF_TAPS):
 
 def init_t(depth: int = 4, shape=(), dtype=jnp.float32,
            taps=hbf.HBF_TAPS):
-    """Time-major (t, c) states — for the one-kernel round trip."""
+    """Time-major (t, c) states for `round_trip_t`."""
     return RateConvState(
         dec=hbf.hbf_dec_cascade_init(depth, shape, dtype, taps, axis=0),
         int_=hbf.hbf_int_cascade_init(depth, shape, dtype, taps, axis=0),
     )
 
 
-def round_trip_t(state: RateConvState, x, taps=hbf.HBF_TAPS, *,
-                 use_kernel: bool = False, interpret: bool = False):
-    """Time-major round trip: x (t, c) -> (state, (t, c)).
-
-    With ``use_kernel=True`` both cascades run as single Pallas kernels
-    (filters.hbf_pallas) — one dispatch each way, inter-stage
-    intermediates VMEM-resident; requires c % 128 == 0.
-    ``use_kernel="mxu"`` routes the banded-MXU cascade kernels instead
-    (round 5: ~3x the shift kernels at production widths; split3
-    operand tolerance ~1e-5 — see hbf_dec_cascade_mxu).
-    """
+def round_trip_t(state: RateConvState, x, taps=hbf.HBF_TAPS):
+    """Time-major round trip: x (t, c) -> (state, (t, c))."""
     depth = len(state.dec)
-    if use_kernel == "mxu":
-        from ..filters.hbf_pallas import (
-            hbf_dec_cascade_mxu, hbf_int_cascade_mxu,
-        )
-
-        st_dec, low = hbf_dec_cascade_mxu(
-            state.dec, x, taps=taps, interpret=interpret
-        )
-        st_int, y = hbf_int_cascade_mxu(
-            state.int_, low, taps=taps, interpret=interpret
-        )
-    elif use_kernel:
-        from ..filters.hbf_pallas import (
-            hbf_dec_cascade_bank, hbf_int_cascade_bank,
-        )
-
-        st_dec, low = hbf_dec_cascade_bank(
-            state.dec, x, taps=taps, interpret=interpret
-        )
-        st_int, y = hbf_int_cascade_bank(
-            state.int_, low, taps=taps, interpret=interpret
-        )
-    else:
-        st_dec, low = hbf.hbf_dec_cascade(state.dec, x, taps, axis=0)
-        st_int, y = hbf.hbf_int_cascade(state.int_, low, taps, axis=0)
+    st_dec, low = hbf.hbf_dec_cascade(state.dec, x, taps, axis=0)
+    st_int, y = hbf.hbf_int_cascade(state.int_, low, taps, axis=0)
     return RateConvState(dec=st_dec, int_=st_int), y / (1 << depth)
 
 
@@ -136,30 +104,10 @@ def cic_hbf_decimate_t(
     cic_rate: int,
     hbf_depth: int,
     taps=hbf.HBF_TAPS,
-    *,
-    use_kernel: bool = False,
-    interpret: bool = False,
 ):
-    """Time-major composite decimator ((t, c) blocks).
-
-    ``use_kernel=True`` runs the CIC integrator cascade and the HBF
-    cascade as one Pallas kernel each (c % 128 == 0); the CIC leg stays
-    bit-identical to the XLA path, the HBF leg is FMA-gated.
-    """
-    if use_kernel:
-        from ..filters.cic_pallas import cic_dec_bank
-        from ..filters.hbf_pallas import hbf_dec_cascade_bank
-
-        cic_state, mid = cic_dec_bank(
-            cic_state, x, cic_rate, interpret=interpret
-        )
-        hbf_states, y = hbf_dec_cascade_bank(
-            hbf_states, mid.astype(jnp.float32), taps=taps,
-            interpret=interpret,
-        )
-    else:
-        cic_state, mid = cic.decimate_block(cic_state, x, cic_rate, axis=0)
-        hbf_states, y = hbf.hbf_dec_cascade(
-            hbf_states, mid.astype(jnp.float32), taps, axis=0
-        )
+    """Time-major composite decimator ((t, c) blocks)."""
+    cic_state, mid = cic.decimate_block(cic_state, x, cic_rate, axis=0)
+    hbf_states, y = hbf.hbf_dec_cascade(
+        hbf_states, mid.astype(jnp.float32), taps, axis=0
+    )
     return (cic_state, hbf_states), y

@@ -1,6 +1,6 @@
 """Elementary stream processors and rate/shape adapters.
 
-TPU-native equivalent of the reference `dsp-process` elementary layer
+Equivalent of the reference `dsp-process` elementary layer
 (dsp-process/src/basic.rs, adapters.rs).  The reference's per-sample
 `Process` impls become closed-form block transforms: delays are carried
 tails + shifted slices, integrators are wrapping cumsums (parallel

@@ -1,4 +1,4 @@
-"""Streaming/block processing model — the config/state split on TPU.
+"""Streaming/block processing model — the config/state split.
 
 This is the semantic core of the reference's `dsp-process` crate
 (dsp-process/src/process.rs:34-142) re-designed for JAX:
@@ -113,7 +113,7 @@ class BlockCarry(NamedTuple):
 def delay_line_block(xs, tail):
     """Prepend a carried tail to a block and return (extended, new_tail).
 
-    The TPU analog of the reference's ring-buffer `copy_within` tail
+    The array analog of the reference's ring-buffer `copy_within` tail
     carry (src/hbf.rs:93-101): the last ``len(tail)`` input samples of
     the extended block become the next block's tail.
     """

@@ -3,7 +3,7 @@
  * An independent, scalar C implementation of the bit-exact integer
  * semantics (cossin DDS, atan2, Q-format multiply, DF1/wide/dither
  * biquad steps, PLL update) used to cross-validate the JAX/Pallas
- * implementations — the TPU build's version of the reference's
+ * implementations — this package's version of the reference's
  * cross-implementation equivalence tests (SURVEY.md §4.4).
  *
  * Semantics follow the reference algorithms:

@@ -25,6 +25,8 @@ MODULES = [
     "idsp_tpu.process",
     "idsp_tpu.stream",
     "idsp_tpu.runtime",
+    "idsp_tpu.dispatch",
+    "idsp_tpu.device",
     "idsp_tpu.ops.trig",
     "idsp_tpu.ops.fastlo",
     "idsp_tpu.ops.accu",
@@ -35,8 +37,8 @@ MODULES = [
     "idsp_tpu.ops.sweptsine",
     "idsp_tpu.ops.unwrap",
     "idsp_tpu.filters.biquad",
+    "idsp_tpu.filters.seq_bank",
     "idsp_tpu.filters.biquad_pallas",
-    "idsp_tpu.filters.ddc_pallas",
     "idsp_tpu.filters.svf",
     "idsp_tpu.filters.normal",
     "idsp_tpu.filters.wdf",
@@ -44,11 +46,8 @@ MODULES = [
     "idsp_tpu.filters.svf_pallas",
     "idsp_tpu.filters.normal_pallas",
     "idsp_tpu.filters.rpll_pallas",
-    "idsp_tpu.filters.fm_pallas",
     "idsp_tpu.filters.hbf",
-    "idsp_tpu.filters.hbf_pallas",
     "idsp_tpu.filters.cic",
-    "idsp_tpu.filters.cic_pallas",
     "idsp_tpu.filters.lowpass",
     "idsp_tpu.filters.lowpass_pallas",
     "idsp_tpu.filters.lockin",
@@ -63,13 +62,12 @@ MODULES = [
     "idsp_tpu.parallel.mesh",
     "idsp_tpu.parallel.stream",
     "idsp_tpu.parallel.pipeline",
-    "idsp_tpu.parallel.halo_rdma",
     "idsp_tpu.parallel.distributed",
     "idsp_tpu.pipelines.fm_disc",
     "idsp_tpu.pipelines.ddc_lockin",
+    "idsp_tpu.pipelines.ddc_chain",
     "idsp_tpu.pipelines.ddc_bank",
     "idsp_tpu.pipelines.channelizer",
-    "idsp_tpu.pipelines.channelizer_pallas",
     "idsp_tpu.pipelines.rate_conversion",
 ]
 
@@ -88,9 +86,6 @@ def main():
         "public symbol (full docs in the docstrings).",
         "",
     ]
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     for name in MODULES:
         mod = importlib.import_module(name)
         out.append(f"## `{name}`")

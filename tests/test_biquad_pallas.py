@@ -1,4 +1,4 @@
-"""Pallas biquad bank kernel: bit-exactness vs the scan reference."""
+"""Lane-bank kernels (interpret mode): bit-exactness vs the scan reference."""
 
 import numpy as np
 import jax
@@ -35,7 +35,7 @@ def test_pallas_df1_bank_bitexact():
 
     st_ref, ys_ref = biquad.df1_process_q(ba_q, 29, st, xs)
     st_pl, ys_pl = df1_bank_q(
-        ba_q, st, xs, 29, time_chunk=128, unroll=4, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
 
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
@@ -61,7 +61,7 @@ def test_pallas_df1_bank_gain_extremes():
     )
     st = biquad.df1_init((c,), jnp.int32)
     _, ys_ref = biquad.df1_process_q(ba_q, 30, st, xs)
-    _, ys_pl = df1_bank_q(ba_q, st, xs, 30, time_chunk=128, interpret=True)
+    _, ys_pl = df1_bank_q(ba_q, st, xs, 30, interpret=True)
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
 
 
@@ -83,8 +83,7 @@ def test_pallas_sos_cascade_bitexact():
         rng.integers(-(2**24), 2**24, size=(t, c), dtype=np.int64).astype(np.int32)
     )
     states = [biquad.df1_init((c,), jnp.int32) for _ in range(3)]
-    sts_pl, ys_pl = sos_bank_q(bas, states, xs, 29, time_chunk=128,
-                               unroll=4, interpret=True)
+    sts_pl, ys_pl = sos_bank_q(bas, states, xs, 29, interpret=True)
 
     # stage-major reference
     y = xs
@@ -110,7 +109,7 @@ def test_pallas_f32_bank_matches_scan():
     xs = jnp.asarray(rng.normal(size=(t, c)).astype(np.float32))
     st = biquad.df1_init((c,), jnp.float32)
     st_ref, ys_ref = biquad.df1_process(jnp.asarray(ba), st, xs)
-    st_pl, ys_pl = df1_bank_f32(ba, st, xs, time_chunk=128, interpret=True)
+    st_pl, ys_pl = df1_bank_f32(ba, st, xs, interpret=True)
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.y), np.asarray(st_ref.y))
 
@@ -147,7 +146,7 @@ def test_pallas_clamp_bank_bitexact():
 
     st_ref, ys_ref = jax.lax.scan(step, st, xs)
     st_pl, ys_pl = df1_clamp_bank_q(
-        ba_q, st, xs, 29, u=u, lo=lo, hi=hi, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, u=u, lo=lo, hi=hi, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.x), np.asarray(st_ref.x))
@@ -171,7 +170,7 @@ def test_pallas_wide_bank_bitexact():
         lambda s, x: biquad.df1_wide_step(ba_q, 29, s, x), st, xs
     )
     st_pl, ys_pl = df1_wide_bank(
-        ba_q, st, xs, 29, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.x), np.asarray(st_ref.x))
@@ -194,7 +193,7 @@ def test_pallas_wide_clamp_bank_bitexact():
         st, xs,
     )
     st_pl, ys_pl = df1_wide_bank(
-        ba_q, st, xs, 29, clamp=(u, lo, hi), time_chunk=128, interpret=True
+        ba_q, st, xs, 29, clamp=(u, lo, hi), interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.y), np.asarray(st_ref.y))
@@ -221,7 +220,7 @@ def test_pallas_dither_bank_bitexact():
         lambda s, x: biquad.df1_dither_step(ba_q, 29, s, x), st, xs
     )
     st_pl, ys_pl = df1_dither_bank(
-        ba_q, st, xs, 29, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(
@@ -246,7 +245,7 @@ def test_pallas_dither_clamp_bank_bitexact():
         st, xs,
     )
     st_pl, ys_pl = df1_dither_bank(
-        ba_q, st, xs, 29, clamp=(u, lo, hi), time_chunk=128, interpret=True
+        ba_q, st, xs, 29, clamp=(u, lo, hi), interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.e), np.asarray(st_ref.e))
@@ -264,7 +263,7 @@ def test_pallas_coef_bank_bitexact_and_per_channel():
     # shared coefficients: must match the static-coefficient kernel
     st_ref, ys_ref = biquad.df1_process_q(ba_q, 29, st, xs)
     st_pl, ys_pl = df1_bank_q_coef(
-        ba_q, st, xs, 29, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.y), np.asarray(st_ref.y))
@@ -288,7 +287,7 @@ def test_pallas_coef_bank_bitexact_and_per_channel():
         jnp.moveaxis(ba_pc, 0, -1), 29, st, xs
     )
     st_pl2, ys_pl2 = df1_bank_q_coef(
-        ba_pc, st, xs, 29, time_chunk=128, interpret=True
+        ba_pc, st, xs, 29, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl2), np.asarray(ys_ref2))
     np.testing.assert_array_equal(np.asarray(st_pl2.y), np.asarray(st_ref2.y))
@@ -308,13 +307,11 @@ def test_pallas_coef_bank_retune_no_recompile():
     ba_b = _ba_q(0.2)
     st = biquad.df1_init((c,), jnp.int32)
 
-    n0 = bp._df1_bank_q_coef_impl._cache_size()
-    st1, _ = bp.df1_bank_q_coef(ba_a, st, xs1, 29, time_chunk=64,
-                                interpret=True)
-    n1 = bp._df1_bank_q_coef_impl._cache_size()
-    st2, ys2 = bp.df1_bank_q_coef(ba_b, st1, xs2, 29, time_chunk=64,
-                                  interpret=True)
-    n2 = bp._df1_bank_q_coef_impl._cache_size()
+    n0 = bp._coef_bank._cache_size()
+    st1, _ = bp.df1_bank_q_coef(ba_a, st, xs1, 29, interpret=True)
+    n1 = bp._coef_bank._cache_size()
+    st2, ys2 = bp.df1_bank_q_coef(ba_b, st1, xs2, 29, interpret=True)
+    n2 = bp._coef_bank._cache_size()
     assert n1 == n0 + 1 and n2 == n1, "coefficient swap recompiled"
 
     # continuity: same as scanning with ba_a then ba_b
@@ -334,7 +331,7 @@ def test_pallas_pll_bank_bitexact():
     st = pll.init((c,))
 
     st_ref, ys_ref = pll.block(pba, st, xs)
-    st_pl, ys_pl = pll_bank(pba, st, xs, time_chunk=128, interpret=True)
+    st_pl, ys_pl = pll_bank(pba, st, xs, interpret=True)
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     for a, b in zip(jax.tree.leaves(st_pl), jax.tree.leaves(st_ref)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -360,8 +357,8 @@ def test_pallas_pll_bank_converges_from_nonzero_state():
     st_ref, st_pl = pll.init((c,)), pll.init((c,))
     st_ref, ys_ref = pll.block(pba, st_ref, xs[:t])
     st_ref, ys_ref2 = pll.block(pba, st_ref, xs[t:])
-    st_pl, ys_pl = pll_bank(pba, st_pl, xs[:t], time_chunk=64, interpret=True)
-    st_pl, ys_pl2 = pll_bank(pba, st_pl, xs[t:], time_chunk=64, interpret=True)
+    st_pl, ys_pl = pll_bank(pba, st_pl, xs[:t], interpret=True)
+    st_pl, ys_pl2 = pll_bank(pba, st_pl, xs[t:], interpret=True)
     np.testing.assert_array_equal(np.asarray(ys_pl2), np.asarray(ys_ref2))
     np.testing.assert_array_equal(np.asarray(st_pl.f), np.asarray(st_ref.f))
 
@@ -381,7 +378,7 @@ def test_pallas_wdf_bank_bitexact():
 
     # reference scan (channels on trailing axes)
     st_ref, ys_ref = wdf.block(tpas, jnp.asarray(a), st, xs)
-    st_pl, ys_pl = wdf_bank(tpas, a, st, xs, time_chunk=128, interpret=True)
+    st_pl, ys_pl = wdf_bank(tpas, a, st, xs, interpret=True)
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.z), np.asarray(st_ref.z))
 
@@ -409,7 +406,7 @@ def test_pallas_wdf_pair_bank_bitexact():
     )
     sts_ref, (lo_ref, hi_ref) = wdf.pair_block(b0, b1, sts, xs)
     sts_pl, (lo_pl, hi_pl) = wdf_pair_bank(
-        b0, b1, sts, xs, time_chunk=128, unroll=4, interpret=True
+        b0, b1, sts, xs, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(lo_pl), np.asarray(lo_ref))
     np.testing.assert_array_equal(np.asarray(hi_pl), np.asarray(hi_ref))
@@ -432,8 +429,7 @@ def test_pallas_lowpass_bank_bitexact():
             )
         )
         st_ref, ys_ref = lowpass.block(jnp.asarray(k), st, xs)
-        st_pl, ys_pl = lowpass_bank(k, st, xs, time_chunk=128,
-                                    interpret=True)
+        st_pl, ys_pl = lowpass_bank(k, st, xs, interpret=True)
         np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
         np.testing.assert_array_equal(np.asarray(st_pl.p), np.asarray(st_ref.p))
 
@@ -458,7 +454,7 @@ def test_pallas_lowpass_bank_saturating_input():
         )
     )
     st_ref, ys_ref = lowpass.block(jnp.asarray(k), st, xs)
-    st_pl, ys_pl = lowpass_bank(k, st, xs, time_chunk=64, interpret=True)
+    st_pl, ys_pl = lowpass_bank(k, st, xs, interpret=True)
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.p), np.asarray(st_ref.p))
 
@@ -494,10 +490,10 @@ def test_pallas_clamp_coef_bank_bitexact():
     u, lo, hi = 321, -(2**28), 2**28
 
     st_ref, ys_ref = df1_clamp_bank_q(
-        ba_q, st, xs, 29, u=u, lo=lo, hi=hi, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, u=u, lo=lo, hi=hi, interpret=True
     )
     st_pl, ys_pl = df1_clamp_bank_q_coef(
-        ba_q, st, xs, 29, u=u, lo=lo, hi=hi, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, u=u, lo=lo, hi=hi, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.y), np.asarray(st_ref.y))
@@ -513,7 +509,7 @@ def test_pallas_clamp_coef_bank_bitexact():
 
     st_ref2, ys_ref2 = jax.lax.scan(step, st, xs)
     st_pl2, ys_pl2 = df1_clamp_bank_q_coef(
-        ba_pc, st, xs, 29, u=u, lo=lo, hi=hi, time_chunk=128, interpret=True
+        ba_pc, st, xs, 29, u=u, lo=lo, hi=hi, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl2), np.asarray(ys_ref2))
     np.testing.assert_array_equal(np.asarray(st_pl2.y), np.asarray(st_ref2.y))
@@ -536,10 +532,10 @@ def test_pallas_wide_coef_bank_bitexact():
         ),
     )
     st_ref, ys_ref = df1_wide_bank(
-        ba_q, st, xs, 29, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
     st_pl, ys_pl = df1_wide_bank_coef(
-        ba_q, st, xs, 29, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.y), np.asarray(st_ref.y))
@@ -556,8 +552,7 @@ def test_pallas_wide_coef_bank_bitexact():
         st2, xs,
     )
     st_pl2, ys_pl2 = df1_wide_bank_coef(
-        ba_pc, st2, xs, 29, clamp=(u, lo, hi), time_chunk=128,
-        interpret=True,
+        ba_pc, st2, xs, 29, clamp=(u, lo, hi), interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(ys_pl2), np.asarray(ys_ref2))
     np.testing.assert_array_equal(np.asarray(st_pl2.y), np.asarray(st_ref2.y))
@@ -584,10 +579,10 @@ def test_pallas_dither_coef_bank_bitexact():
         ),
     )
     st_ref, ys_ref = df1_dither_bank(
-        ba_q, st, xs, 29, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
     st_pl, ys_pl = df1_dither_bank_coef(
-        ba_q, st, xs, 29, time_chunk=128, interpret=True
+        ba_q, st, xs, 29, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.e), np.asarray(st_ref.e))
@@ -601,111 +596,13 @@ def test_pallas_dither_coef_bank_bitexact():
         st, xs,
     )
     st_pl2, ys_pl2 = df1_dither_bank_coef(
-        ba_pc, st, xs, 29, time_chunk=128, interpret=True
+        ba_pc, st, xs, 29, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl2), np.asarray(ys_ref2))
     np.testing.assert_array_equal(
         np.asarray(st_pl2.xy.y), np.asarray(st_ref2.xy.y)
     )
     np.testing.assert_array_equal(np.asarray(st_pl2.e), np.asarray(st_ref2.e))
-
-
-def test_pallas_fused_mix_df1_bitexact():
-    # Fused NCO+mix+biquad kernel == XLA mix then df1_bank_q, bit-for-bit.
-    from idsp_tpu import fxp
-    from idsp_tpu.filters.biquad_pallas import df1_bank_q
-    from idsp_tpu.filters.ddc_pallas import ddc_mix_df1_bank
-    from idsp_tpu.ops.trig import cossin
-
-    c, t = 128, 256
-    rng = np.random.default_rng(31)
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    ba_q = _ba_q(0.02)
-    st = biquad.df1_init((2 * c,), jnp.int32)
-
-    idx = (jnp.arange(1, t + 1, dtype=jnp.int64) & 0xFFFFFFFF).astype(
-        jnp.int32
-    )
-    phases = phase0[None, :] + steps[None, :] * idx[:, None]
-    lo_re, lo_im = cossin(phases, lookup="select")
-    miq = jnp.concatenate(
-        [fxp.q_apply(lo_re, x[:, None], 32),
-         fxp.q_apply(-lo_im, x[:, None], 32)],
-        axis=1,
-    )
-    st_ref, ys_ref = df1_bank_q(ba_q, st, miq, 29, time_chunk=128,
-                                interpret=True)
-    st_f, p_f, ys_f = ddc_mix_df1_bank(
-        ba_q, st, phase0, steps, x, 29, time_chunk=128, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(ys_f), np.asarray(ys_ref))
-    np.testing.assert_array_equal(np.asarray(st_f.y), np.asarray(st_ref.y))
-    np.testing.assert_array_equal(
-        np.asarray(p_f), np.asarray(phase0 + steps * jnp.int32(t))
-    )
-
-
-def test_pallas_fused_df1_hbf1_bitexact():
-    # Fused DF1 + half-band stage-1 decimator vs df1_bank_q(out f32)
-    # then hbf_dec_block(axis=0): integer DF1 state and carried tails
-    # are bit-exact (they are exact copies); the f32 FIR output is
-    # gated to <= 2 ULP (XLA contracts mul+add to FMA differently
-    # across the two graphs — documented float fast path).
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.biquad_pallas import df1_bank_q
-    from idsp_tpu.filters.ddc_pallas import df1_hbf1_bank, hbf1_tail_init
-
-    c2, t = 128, 256
-    taps = hbf.HBF_TAPS[2]
-    m = len(taps)
-    rng = np.random.default_rng(33)
-    ba_q = _ba_q(0.02)
-
-    st_ref = biquad.df1_init((c2,), jnp.int32)
-    dec_ref = hbf.hbf_dec_init(m, (c2,), axis=0)
-    st_f = biquad.df1_init((c2,), jnp.int32)
-    tail = hbf1_tail_init(c2, m)
-
-    for _ in range(3):
-        xs = jnp.asarray(
-            rng.integers(-(2**27), 2**27, size=(t, c2),
-                         dtype=np.int64).astype(np.int32)
-        )
-        st_ref, ys = df1_bank_q(ba_q, st_ref, xs, 29, time_chunk=64,
-                                interpret=True, out_dtype=jnp.float32)
-        dec_ref, y2_ref = hbf.hbf_dec_block(taps, dec_ref, ys, axis=0)
-
-        st_f, tail, y2 = df1_hbf1_bank(ba_q, st_f, tail, xs, 29,
-                                       time_chunk=64, unroll=4,
-                                       interpret=True)
-        have, want = np.asarray(y2), np.asarray(y2_ref)
-        # FMA-contraction drift is ~1 ULP of the largest FIR *term*;
-        # half-band cancellation can amplify that relative to the
-        # output, so the gate scales with the input magnitude.
-        scale = np.float32(np.abs(np.asarray(ys)).max())
-        assert np.abs(have - want).max() <= 4 * np.spacing(scale)
-        np.testing.assert_array_equal(np.asarray(st_f.y),
-                                      np.asarray(st_ref.y))
-        np.testing.assert_array_equal(
-            np.asarray(tail[: 2 * m - 1]), np.asarray(dec_ref.odd)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(tail[2 * m - 1:]), np.asarray(dec_ref.even)
-        )
 
 
 def test_pallas_q64_bank_bitexact():
@@ -730,8 +627,7 @@ def test_pallas_q64_bank_bitexact():
             rng.integers(-(2**55), 2**55, size=(t, c2), dtype=np.int64)
         )
         st_ref, ys_ref = biquad.df1_process_q64(ba_q61, 61, st_ref, xs)
-        st_pl, ys = df1_bank_q64(ba_q61, st_pl, xs, 61, time_chunk=64,
-                                 interpret=True)
+        st_pl, ys = df1_bank_q64(ba_q61, st_pl, xs, 61, interpret=True)
         np.testing.assert_array_equal(np.asarray(ys), np.asarray(ys_ref))
         np.testing.assert_array_equal(np.asarray(st_pl.x),
                                       np.asarray(st_ref.x))
@@ -766,293 +662,12 @@ def test_pallas_q16_bank_bitexact():
                                            dtype=jnp.int16),
             st_ref, xs,
         )
-        st_pl, ys = df1_bank_q16(ba16, st_pl, xs, 13, time_chunk=64,
-                                 interpret=True)
+        st_pl, ys = df1_bank_q16(ba16, st_pl, xs, 13, interpret=True)
         np.testing.assert_array_equal(np.asarray(ys), np.asarray(ys_ref))
         np.testing.assert_array_equal(np.asarray(st_pl.x),
                                       np.asarray(st_ref.x))
         np.testing.assert_array_equal(np.asarray(st_pl.y),
                                       np.asarray(st_ref.y))
-
-
-def test_pallas_fused_df1_hbf12():
-    # Two-stage fused decimator vs df1_bank_q(out f32) + two
-    # hbf_dec_block(axis=0) stages: integer state + tails exact, f32
-    # FIR outputs gated at the FMA bound (scaled), across streamed
-    # blocks.
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.biquad_pallas import df1_bank_q
-    from idsp_tpu.filters.ddc_pallas import df1_hbf12_bank, hbf1_tail_init
-
-    c2, t = 128, 256
-    taps1, taps2 = hbf.HBF_TAPS[2], hbf.HBF_TAPS[1]
-    m1, m2 = len(taps1), len(taps2)
-    rng = np.random.default_rng(34)
-    ba_q = _ba_q(0.02)
-
-    st_ref = biquad.df1_init((c2,), jnp.int32)
-    d1_ref = hbf.hbf_dec_init(m1, (c2,), axis=0)
-    d2_ref = hbf.hbf_dec_init(m2, (c2,), axis=0)
-    st_f = biquad.df1_init((c2,), jnp.int32)
-    t1 = hbf1_tail_init(c2, m1)
-    t2 = hbf1_tail_init(c2, m2)
-
-    for _ in range(3):
-        xs = jnp.asarray(
-            rng.integers(-(2**27), 2**27, size=(t, c2),
-                         dtype=np.int64).astype(np.int32)
-        )
-        st_ref, ys = df1_bank_q(ba_q, st_ref, xs, 29, time_chunk=64,
-                                interpret=True, out_dtype=jnp.float32)
-        d1_ref, y2_ref = hbf.hbf_dec_block(taps1, d1_ref, ys, axis=0)
-        d2_ref, y4_ref = hbf.hbf_dec_block(taps2, d2_ref, y2_ref, axis=0)
-
-        st_f, t1, t2, y4 = df1_hbf12_bank(
-            ba_q, st_f, t1, t2, xs, 29, time_chunk=64, interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(st_f.y),
-                                      np.asarray(st_ref.y))
-        np.testing.assert_array_equal(
-            np.asarray(t1[:2 * m1 - 1]), np.asarray(d1_ref.odd)
-        )
-        scale = np.float32(np.abs(np.asarray(ys)).max())
-        # stage-2 tails are FIR outputs of stage 1 -> FMA-bound gate
-        assert (
-            np.abs(np.asarray(t2[:2 * m2 - 1]) - np.asarray(d2_ref.odd))
-            .max() <= 4 * np.spacing(scale)
-        )
-        assert (
-            np.abs(np.asarray(y4) - np.asarray(y4_ref)).max()
-            <= 8 * np.spacing(scale)
-        )
-
-
-import pytest
-
-
-@pytest.mark.parametrize("depth", [1, 2, 3])
-def test_pallas_fused_df1_hbf_cascade(depth):
-    # Generic fused cascade vs the unfused composition at every depth:
-    # integer state exact; f32 outputs at the FMA bound.
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.biquad_pallas import df1_bank_q
-    from idsp_tpu.filters.ddc_pallas import (
-        df1_hbf_cascade_bank, hbf1_tail_init,
-    )
-
-    c2, t = 128, 512
-    taps = tuple(hbf.HBF_TAPS[2 - d] for d in range(depth))
-    rng = np.random.default_rng(35)
-    ba_q = _ba_q(0.02)
-
-    st_ref = biquad.df1_init((c2,), jnp.int32)
-    dec_ref = tuple(
-        hbf.hbf_dec_init(len(tv), (c2,), axis=0) for tv in taps
-    )
-    st_f = biquad.df1_init((c2,), jnp.int32)
-    tails = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps)
-
-    for _ in range(3):
-        xs = jnp.asarray(
-            rng.integers(-(2**27), 2**27, size=(t, c2),
-                         dtype=np.int64).astype(np.int32)
-        )
-        st_ref, ys = df1_bank_q(ba_q, st_ref, xs, 29, time_chunk=128,
-                                interpret=True, out_dtype=jnp.float32)
-        y8_ref = ys
-        new_dec = []
-        for tv, dr in zip(taps, dec_ref):
-            dr, y8_ref = hbf.hbf_dec_block(tv, dr, y8_ref, axis=0)
-            new_dec.append(dr)
-        dec_ref = tuple(new_dec)
-
-        st_f, tails, y8 = df1_hbf_cascade_bank(
-            ba_q, st_f, tails, xs, 29, taps=taps, time_chunk=128,
-            interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(st_f.y),
-                                      np.asarray(st_ref.y))
-        scale = np.float32(np.abs(np.asarray(ys)).max())
-        assert (
-            np.abs(np.asarray(y8) - np.asarray(y8_ref)).max()
-            <= 16 * np.spacing(scale)
-        )
-
-
-@pytest.mark.parametrize("depth", [1, 3])
-def test_pallas_fused_clamp_hbf_cascade(depth):
-    # Anti-windup DF1 fused with the cascade (biquad.rs:399-404 clamp
-    # BEFORE feedback) vs df1_clamp_bank_q + XLA HBF stages.
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.biquad_pallas import df1_clamp_bank_q
-    from idsp_tpu.filters.ddc_pallas import (
-        df1_clamp_hbf_cascade_bank, hbf1_tail_init,
-    )
-
-    c2, t = 128, 512
-    taps = tuple(hbf.HBF_TAPS[2 - d] for d in range(depth))
-    rng = np.random.default_rng(36)
-    ba_q = _ba_q(0.02)
-    u, lo, hi = 1 << 10, -(1 << 26), 1 << 26  # clamp engages on peaks
-
-    st_ref = biquad.df1_init((c2,), jnp.int32)
-    dec_ref = tuple(
-        hbf.hbf_dec_init(len(tv), (c2,), axis=0) for tv in taps
-    )
-    st_f = biquad.df1_init((c2,), jnp.int32)
-    tails = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps)
-
-    for _ in range(3):
-        xs = jnp.asarray(
-            rng.integers(-(2**27), 2**27, size=(t, c2),
-                         dtype=np.int64).astype(np.int32)
-        )
-        st_ref, ys = df1_clamp_bank_q(
-            ba_q, st_ref, xs, 29, u=u, lo=lo, hi=hi, time_chunk=128,
-            interpret=True,
-        )
-        yd = ys.astype(jnp.float32)
-        new_dec = []
-        for tv, dr in zip(taps, dec_ref):
-            dr, yd = hbf.hbf_dec_block(tv, dr, yd, axis=0)
-            new_dec.append(dr)
-        dec_ref = tuple(new_dec)
-
-        st_f, tails, y8 = df1_clamp_hbf_cascade_bank(
-            ba_q, st_f, tails, xs, 29, u=u, lo=lo, hi=hi, taps=taps,
-            time_chunk=128, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(st_f.y),
-                                      np.asarray(st_ref.y))
-        np.testing.assert_array_equal(np.asarray(st_f.x),
-                                      np.asarray(st_ref.x))
-        scale = np.float32(np.abs(np.asarray(ys)).max())
-        assert (
-            np.abs(np.asarray(y8) - np.asarray(yd)).max()
-            <= 16 * np.spacing(scale)
-        )
-
-
-def test_pallas_fastlo_cascade_matches_xla_fastlo():
-    # In-kernel fast-LO mix vs the XLA fastlo_mix + fused cascade.
-    # The two are NOT bit-identical: the f32 complex multiply has an
-    # ~8-LSB ulp at 2^27 mix scale and XLA contracts a*b - c*d into FMA
-    # differently across the two graphs, so the integer mixes differ by
-    # a few LSB.  Gate at mix-rounding tolerance (the fast path's
-    # absolute quality vs the ideal mix is gated in tests/test_fastlo.py).
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.ddc_pallas import (
-        df1_hbf_cascade_bank, fastlo_ddc_cascade_bank, hbf1_tail_init,
-    )
-    from idsp_tpu.ops.fastlo import fastlo_mix
-
-    c, t, tc = 128, 512, 128
-    c2 = 2 * c
-    taps = tuple(hbf.HBF_TAPS[2 - d] for d in range(3))
-    rng = np.random.default_rng(37)
-    ba_q = _ba_q(0.02)
-
-    st_a = biquad.df1_init((c2,), jnp.int32)
-    tails_a = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps)
-    st_b = biquad.df1_init((c2,), jnp.int32)
-    tails_b = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps)
-
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    ph_a = phase0
-    for _ in range(2):
-        x = jnp.asarray(
-            rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-            .astype(np.int32)
-        )
-        miq = fastlo_mix(x, ph_a, steps, tc)
-        st_a, tails_a, y_a = df1_hbf_cascade_bank(
-            ba_q, st_a, tails_a, miq, 29, taps=taps, time_chunk=tc,
-            interpret=True,
-        )
-        ph_a = ph_a + steps * jnp.int32(t)
-
-        st_b, tails_b, ph_b, y_b = fastlo_ddc_cascade_bank(
-            ba_q, st_b, tails_b, phase0, steps, x, 29, taps=taps,
-            time_chunk=tc, interpret=True,
-        )
-        phase0 = ph_b
-
-        np.testing.assert_array_equal(np.asarray(ph_a), np.asarray(ph_b))
-        # x-state = the last two raw mix samples: bounded by the f32
-        # mix ulp (8 LSB at 2^27) times one FMA-contraction ulp.
-        dx = (np.asarray(st_a.x, np.int64) - np.asarray(st_b.x, np.int64))
-        assert np.abs(dx).max() <= 32, np.abs(dx).max()
-        # filtered outputs: LSB-scale mix differences pass through the
-        # unity-DC-gain chain; gate rms at -100 dB of signal rms.
-        ya = np.asarray(y_a, np.float64)
-        yb = np.asarray(y_b, np.float64)
-        rms_sig = np.sqrt((ya**2).mean()) + 1.0
-        rms_d = np.sqrt(((ya - yb) ** 2).mean())
-        assert rms_d < 1e-5 * rms_sig, (rms_d, rms_sig)
-
-
-def test_pallas_fastlo_cascade_clamp_variant():
-    # clamp=(u, lo, hi) flows through the fused fast-LO chain.
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.biquad_pallas import df1_clamp_bank_q
-    from idsp_tpu.filters.ddc_pallas import (
-        fastlo_ddc_cascade_bank, hbf1_tail_init,
-    )
-    from idsp_tpu.ops.fastlo import fastlo_mix
-
-    c, t, tc = 128, 512, 128
-    c2 = 2 * c
-    taps = (hbf.HBF_TAPS[2],)
-    rng = np.random.default_rng(38)
-    ba_q = _ba_q(0.02)
-    u, lo, hi = 0, -(1 << 25), 1 << 25
-
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-        .astype(np.int32)
-    )
-
-    miq = fastlo_mix(x, phase0, steps, tc)
-    st_ref = biquad.df1_init((c2,), jnp.int32)
-    st_ref, ys = df1_clamp_bank_q(
-        ba_q, st_ref, miq, 29, u=u, lo=lo, hi=hi, time_chunk=tc,
-        interpret=True,
-    )
-    yd = ys.astype(jnp.float32)
-    dec = hbf.hbf_dec_init(len(taps[0]), (c2,), axis=0)
-    dec, yd = hbf.hbf_dec_block(taps[0], dec, yd, axis=0)
-
-    st_f = biquad.df1_init((c2,), jnp.int32)
-    tails = (hbf1_tail_init(c2, len(taps[0])),)
-    st_f, tails, _ph, y = fastlo_ddc_cascade_bank(
-        ba_q, st_f, tails, phase0, steps, x, 29, clamp=(u, lo, hi),
-        taps=taps, time_chunk=tc, interpret=True,
-    )
-    # Same FMA-contraction caveat as the plain fast-LO test: the two
-    # fast mixes differ by LSBs, and the clamp is 1-Lipschitz so the
-    # difference stays LSB-scale through the recurrence.
-    dx = np.asarray(st_f.x, np.int64) - np.asarray(st_ref.x, np.int64)
-    assert np.abs(dx).max() <= 32, np.abs(dx).max()
-    ya = np.asarray(yd, np.float64)
-    yb = np.asarray(y, np.float64)
-    rms_sig = np.sqrt((ya**2).mean()) + 1.0
-    rms_d = np.sqrt(((ya - yb) ** 2).mean())
-    assert rms_d < 1e-5 * rms_sig, (rms_d, rms_sig)
 
 
 def test_pallas_df1_bank_dec_bitexact():
@@ -1070,10 +685,9 @@ def test_pallas_df1_bank_dec_bitexact():
             rng.integers(-(2**27), 2**27, size=(t, c),
                          dtype=np.int64).astype(np.int32)
         )
-        st_a, ys = df1_bank_q(ba_q, st_a, xs, 29, time_chunk=128,
-                              interpret=True)
+        st_a, ys = df1_bank_q(ba_q, st_a, xs, 29, interpret=True)
         st_b, yd = df1_bank_q_dec(ba_q, st_b, xs, 29, d=d,
-                                  time_chunk=128, interpret=True)
+                                  interpret=True)
         np.testing.assert_array_equal(
             np.asarray(ys)[::d], np.asarray(yd)
         )
@@ -1098,61 +712,12 @@ def test_pallas_lowpass_bank_dec_bitexact():
             rng.integers(-(2**27), 2**27, size=(t, c),
                          dtype=np.int64).astype(np.int32)
         )
-        st_a, ys = lowpass_bank(k2, st_a, xs, time_chunk=128,
-                                interpret=True)
-        st_b, yd = lowpass_bank(k2, st_b, xs, time_chunk=128, dec=d,
+        st_a, ys = lowpass_bank(k2, st_a, xs, interpret=True)
+        st_b, yd = lowpass_bank(k2, st_b, xs, dec=d,
                                 interpret=True)
         np.testing.assert_array_equal(np.asarray(ys)[::d], np.asarray(yd))
         np.testing.assert_array_equal(np.asarray(st_a.p),
                                       np.asarray(st_b.p))
-
-
-def test_pallas_fastlo_df1_dec_bank():
-    # one-kernel DDC-bank front end vs the split fast path: x-state
-    # within the f32 mix rounding bound, decimated outputs rms-gated
-    # (FMA contraction differs across the two graphs — see the fast-LO
-    # cascade test).
-    from idsp_tpu.filters.biquad_pallas import df1_bank_q_dec
-    from idsp_tpu.filters.ddc_pallas import fastlo_df1_dec_bank
-    from idsp_tpu.ops.fastlo import fastlo_mix
-
-    c, t, d, tc = 128, 512, 16, 128
-    c2 = 2 * c
-    rng = np.random.default_rng(42)
-    ba_q = _ba_q(0.02)
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-        .astype(np.int32)
-    )
-
-    miq = fastlo_mix(x, phase0, steps, tc)
-    st_a = biquad.df1_init((c2,), jnp.int32)
-    st_a, yd_a = df1_bank_q_dec(ba_q, st_a, miq, 29, d=d, time_chunk=tc,
-                                interpret=True)
-
-    st_b = biquad.df1_init((c2,), jnp.int32)
-    st_b, ph_b, yd_b = fastlo_df1_dec_bank(
-        ba_q, st_b, phase0, steps, x, 29, d=d, time_chunk=tc,
-        interpret=True,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(phase0 + steps * jnp.int32(t)), np.asarray(ph_b)
-    )
-    dx = np.asarray(st_a.x, np.int64) - np.asarray(st_b.x, np.int64)
-    assert np.abs(dx).max() <= 32, np.abs(dx).max()
-    ya = np.asarray(yd_a, np.float64)
-    yb = np.asarray(yd_b, np.float64)
-    rms_sig = np.sqrt((ya**2).mean()) + 1.0
-    rms_d = np.sqrt(((ya - yb) ** 2).mean())
-    assert rms_d < 1e-5 * rms_sig, (rms_d, rms_sig)
 
 
 def test_pallas_df1_bank_dec_non_pow2():
@@ -1169,287 +734,9 @@ def test_pallas_df1_bank_dec_non_pow2():
     )
     st_a = biquad.df1_init((c,), jnp.int32)
     st_b = biquad.df1_init((c,), jnp.int32)
-    st_a, ys = df1_bank_q(ba_q, st_a, xs, 29, time_chunk=96,
-                          interpret=True)
-    st_b, yd = df1_bank_q_dec(ba_q, st_b, xs, 29, d=d, time_chunk=256,
-                              interpret=True)
+    st_a, ys = df1_bank_q(ba_q, st_a, xs, 29, interpret=True)
+    st_b, yd = df1_bank_q_dec(ba_q, st_b, xs, 29, d=d, interpret=True)
     np.testing.assert_array_equal(np.asarray(ys)[::d], np.asarray(yd))
     np.testing.assert_array_equal(np.asarray(st_a.y), np.asarray(st_b.y))
 
 
-def test_pallas_fastlo_x_layouts_bit_identical():
-    # x_layout="lanes" streams the scalar input at 4 B/sample (128x
-    # less HBM than the lane-replicated layout) via an in-kernel
-    # broadcast+transpose; both layouts are bit-identical.
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.ddc_pallas import (
-        fastlo_ddc_cascade_bank, hbf1_tail_init,
-    )
-
-    c, t = 128, 512
-    c2 = 2 * c
-    rng = np.random.default_rng(50)
-    ba_q = _ba_q(0.02)
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    taps3 = tuple(hbf.HBF_TAPS[2 - d] for d in range(3))
-    outs = {}
-    for layout in ("replicate", "lanes"):
-        st = biquad.df1_init((c2,), jnp.int32)
-        tails = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps3)
-        st, tails, _ph, y = fastlo_ddc_cascade_bank(
-            ba_q, st, tails, phase0, steps, x, 29, taps=taps3,
-            time_chunk=128, x_layout=layout, interpret=True,
-        )
-        outs[layout] = (np.asarray(st.x), np.asarray(y))
-    np.testing.assert_array_equal(outs["replicate"][0], outs["lanes"][0])
-    np.testing.assert_array_equal(outs["replicate"][1], outs["lanes"][1])
-
-
-def test_pallas_atan2_i32_bitexact():
-    # The kernel-traceable atan2 (limb-emulated u64, select-tree clz)
-    # is bit-identical to ops.trig.atan2 (itself golden-validated),
-    # including the saturating-negation and axis-exactness edges.
-    from idsp_tpu.ops import trig
-    from idsp_tpu.filters.ddc_pallas import atan2_i32
-
-    rng = np.random.default_rng(61)
-    y = rng.integers(-(2**31), 2**31, size=(1 << 15,),
-                     dtype=np.int64).astype(np.int32)
-    x = rng.integers(-(2**31), 2**31, size=(1 << 15,),
-                     dtype=np.int64).astype(np.int32)
-    sp = np.array([0, 1, -1, 2**31 - 1, -(2**31), 0x3FFF_FFFF],
-                  np.int32)
-    ys = np.concatenate([y, np.repeat(sp, len(sp))])
-    xs = np.concatenate([x, np.tile(sp, len(sp))])
-    a = np.asarray(trig.atan2(jnp.asarray(ys), jnp.asarray(xs)))
-    b = np.asarray(atan2_i32(jnp.asarray(ys), jnp.asarray(xs)))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_pallas_fastlo_ddc_bank_one_kernel_bitexact():
-    # mix + DF1 + decimate + atan2 + PLL in ONE kernel == the composed
-    # fast path (fast_fused front end + XLA atan2 + pll.block),
-    # bit-for-bit including both carried states.
-    from idsp_tpu.filters import pll
-    from idsp_tpu.filters.ddc_pallas import (
-        fastlo_ddc_bank_block, fastlo_df1_dec_bank,
-    )
-    from idsp_tpu.ops.trig import atan2
-
-    c, t, d = 128, 1024, 16
-    c2 = 2 * c
-    rng = np.random.default_rng(60)
-    ba_q = _ba_q(0.004)
-    pll_ba = jnp.asarray(pll.coefficients_from_bandwidth(2e-2, 4.0))
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-        .astype(np.int32)
-    )
-
-    st_a = biquad.df1_init((c2,), jnp.int32)
-    pst_a = pll.init((c,))
-    ph_a = phase0
-    for _ in range(2):
-        st_a, ph_a, yd = fastlo_df1_dec_bank(
-            ba_q, st_a, ph_a, steps, x, 29, d=d, time_chunk=128,
-            interpret=True,
-        )
-        phd = atan2(yd[:, c:], yd[:, :c])
-        pst_a, _ = pll.block(pll_ba, pst_a, phd)
-
-    st_b = biquad.df1_init((c2,), jnp.int32)
-    pst_b = pll.init((c,))
-    ph_b = phase0
-    for _ in range(2):
-        st_b, pst_b, ph_b, yd_b = fastlo_ddc_bank_block(
-            ba_q, pll_ba, st_b, pst_b, ph_b, steps, x, 29, d=d,
-            time_chunk=128, interpret=True,
-        )
-
-    np.testing.assert_array_equal(np.asarray(ph_a), np.asarray(ph_b))
-    np.testing.assert_array_equal(np.asarray(yd), np.asarray(yd_b))
-    np.testing.assert_array_equal(np.asarray(st_a.y), np.asarray(st_b.y))
-    for name in ("z0", "y0", "f0", "f", "y"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(pst_a, name)),
-            np.asarray(getattr(pst_b, name)), err_msg=name,
-        )
-
-
-def test_pallas_fastlo_ddc_bank_lp_one_kernel():
-    # Lowpass2-flavored one-kernel DDC bank vs the XLA-fast-mix +
-    # lowpass.block + atan2 + pll.block composition.  The in-kernel LP
-    # body is the same _lp_body the bit-exact lowpass_bank uses, so the
-    # only divergence is the documented XLA-vs-kernel f32 mix rounding
-    # (a few LSB), integrated by the filter/PLL.
-    from idsp_tpu.filters import lowpass, pll
-    from idsp_tpu.filters.ddc_pallas import fastlo_ddc_bank_block_lp
-    from idsp_tpu.ops.fastlo import fastlo_mix
-    from idsp_tpu.ops.trig import atan2
-
-    c, t, d = 128, 1024, 16
-    c2 = 2 * c
-    rng = np.random.default_rng(61)
-    k2 = tuple(int(v) for v in lowpass.gains2(0.004))
-    pll_ba = jnp.asarray(pll.coefficients_from_bandwidth(2e-2, 4.0))
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-        .astype(np.int32)
-    )
-
-    lp_a = lowpass.init(2, (c2,))
-    pst_a = pll.init((c,))
-    ph_a = phase0
-    for _ in range(2):
-        miq = fastlo_mix(x, ph_a, steps, 128)
-        lp_a, yiq = lowpass.block(
-            jnp.asarray(np.asarray(k2, np.int64).astype(np.int32)),
-            lp_a, miq,
-        )
-        yd = yiq[::d]
-        phd = atan2(yd[:, c:], yd[:, :c])
-        pst_a, _ = pll.block(pll_ba, pst_a, phd)
-        ph_a = ph_a + steps * jnp.int32(t)
-
-    lp_b = lowpass.init(2, (c2,))
-    pst_b = pll.init((c,))
-    ph_b = phase0
-    for _ in range(2):
-        lp_b, pst_b, ph_b, yd_b, _ypll = fastlo_ddc_bank_block_lp(
-            k2, pll_ba, lp_b, pst_b, ph_b, steps, x, n=2, d=d,
-            time_chunk=128, interpret=True,
-        )
-
-    np.testing.assert_array_equal(np.asarray(ph_a), np.asarray(ph_b))
-    dy = np.abs(np.asarray(yd, np.int64) - np.asarray(yd_b, np.int64))
-    assert dy.max() <= 16, dy.max()
-    # PLL frequency words track within LSB-scale of the mix noise
-    # integrated by the DC pole: compare at y-LSB scale (f is <<32).
-    df = np.abs(
-        np.asarray(pst_a.f, np.int64) - np.asarray(pst_b.f, np.int64)
-    ) / 2**32
-    assert np.median(df) < 64.0, np.median(df)
-
-
-def test_pallas_fastlo_dec_bank_x_layouts_bit_identical():
-    # lanes x-layout on the dec-bank kernel too (the cascade variant is
-    # covered above).
-    from idsp_tpu.filters.ddc_pallas import fastlo_df1_dec_bank
-
-    c, t = 128, 512
-    c2 = 2 * c
-    rng = np.random.default_rng(51)
-    ba_q = _ba_q(0.004)
-    phase0 = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-        .astype(np.int32)
-    )
-    outs = {}
-    for layout in ("replicate", "lanes"):
-        st = biquad.df1_init((c2,), jnp.int32)
-        st, _ph, y = fastlo_df1_dec_bank(
-            ba_q, st, phase0, steps, x, 29, d=16, time_chunk=128,
-            x_layout=layout, interpret=True,
-        )
-        outs[layout] = (np.asarray(st.x), np.asarray(y))
-    np.testing.assert_array_equal(outs["replicate"][0], outs["lanes"][0])
-    np.testing.assert_array_equal(outs["replicate"][1], outs["lanes"][1])
-
-
-def test_pallas_fused_cascade_tiny_fully_unrolled_chunk():
-    # tc == unroll (no fori loop in the kernel) is the round-5 tuned
-    # headline config (tc=16/u=16 measured 13.2/16.2 GS/s at
-    # c=512/1024, scripts/tpu_headline_tc32.py + tpu_tc16_confirm.py).
-    # The exact-LO integer cascade must stay BIT-identical across
-    # chunkings; the fast-LO variant re-factors its coarse/fine tables
-    # per chunk so it is gated at mix-rounding tolerance (identical
-    # 119.3 dB SNR vs exact-LO on device at tc=32 and tc=128).
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.ddc_pallas import (
-        df1_hbf_cascade_bank, fastlo_ddc_cascade_bank, hbf1_tail_init,
-    )
-
-    c, t = 128, 512
-    c2 = 2 * c
-    taps = tuple(hbf.HBF_TAPS[2 - d] for d in range(3))
-    rng = np.random.default_rng(41)
-    ba_q = _ba_q(0.02)
-    miq = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t, c2), dtype=np.int64)
-        .astype(np.int32))
-
-    def run_exact(tc, u):
-        st = biquad.df1_init((c2,), jnp.int32)
-        tails = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps)
-        st, tails, y = df1_hbf_cascade_bank(
-            ba_q, st, tails, miq, 29, taps=taps, time_chunk=tc,
-            unroll=u, interpret=True)
-        return st, tails, y
-
-    st_a, tails_a, y_a = run_exact(128, 4)
-    st_b, tails_b, y_b = run_exact(16, 16)
-    np.testing.assert_array_equal(np.asarray(y_a), np.asarray(y_b))
-    np.testing.assert_array_equal(np.asarray(st_a.x), np.asarray(st_b.x))
-    for ta, tb in zip(tails_a, tails_b):
-        np.testing.assert_array_equal(np.asarray(ta), np.asarray(tb))
-
-    # fast-LO at the tuned chunking: mix-rounding tolerance vs tc=128
-    x = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
-        .astype(np.int32))
-    steps = jnp.asarray(
-        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
-        .astype(np.int32))
-    ph0 = jnp.zeros((c,), jnp.int32)
-
-    def run_fast(tc, u):
-        st = biquad.df1_init((c2,), jnp.int32)
-        tails = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps)
-        st, tails, ph, y = fastlo_ddc_cascade_bank(
-            ba_q, st, tails, ph0, steps, x, 29, taps=taps,
-            time_chunk=tc, unroll=u, interpret=True)
-        return ph, y
-
-    ph_a, yf_a = run_fast(128, 4)
-    ph_b, yf_b = run_fast(16, 16)
-    np.testing.assert_array_equal(np.asarray(ph_a), np.asarray(ph_b))
-    ya = np.asarray(yf_a, np.float64)
-    yb = np.asarray(yf_b, np.float64)
-    rms_sig = np.sqrt((ya**2).mean()) + 1.0
-    rms_d = np.sqrt(((ya - yb) ** 2).mean())
-    assert rms_d < 1e-5 * rms_sig, (rms_d, rms_sig)

@@ -73,43 +73,26 @@ def test_ddc_chain_snr():
 
 
 def test_fastlo_fused_chain_snr():
-    """The one-kernel fast-LO chain (fastlo_ddc_cascade_bank) recovers
-    the same coherent baseband tone at >= the exact chain's SNR gate —
-    the chain-level counterpart of the LO-level gates in
+    """The fast-LO headline chain (`pipelines.ddc_chain`, lo_mode="fast")
+    recovers the same coherent baseband tone at >= the exact chain's
+    SNR gate — the chain-level counterpart of the LO-level gates in
     tests/test_fastlo.py (matched-SNR fast-path convention)."""
-    from idsp_tpu.filters.ddc_pallas import (
-        fastlo_ddc_cascade_bank, hbf1_tail_init,
-    )
+    from idsp_tpu.pipelines import ddc_chain
 
     t = 1 << 15
-    c = 128
-    c2 = 2 * c
+    c = 4
     f0_step = np.int32(0x4000_0000)
     off_step = np.int32(3 << 18)
     phases_in = accu.ramp(jnp.int32(123), f0_step + off_step, t)
     re_in, _ = cossin(phases_in)
     x = ((re_in.astype(jnp.int64) * (1 << 27)) >> 31).astype(jnp.int32)
-
-    ba_q = jnp.asarray(
-        biquad.quantize_ba(
-            biquad.from_cookbook(Filter().critical_frequency(0.02).lowpass()),
-            29,
-        )
-    )
-    taps3 = (hbf.HBF_TAPS[2], hbf.HBF_TAPS[1], hbf.HBF_TAPS[0])
-    # the kernel's ramp convention is phase0 + steps*(i+1); the exact
-    # fixture used ramp(0, f0) = phase before first sample 0 => match
-    # with phase0 = -f0_step + 0 ... ramp() yields phase[i] = p0 +
-    # step*(i+1) as well (accu.ramp convention), so phase0 = 0.
     steps = jnp.full((c,), f0_step, jnp.int32)
-    st = biquad.df1_init((c2,), jnp.int32)
-    tails = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps3)
-    st, tails, _ph, y8 = fastlo_ddc_cascade_bank(
-        ba_q, st, tails, jnp.zeros((c,), jnp.int32), steps, x, 29,
-        taps=taps3, time_chunk=128, unroll=4, interpret=True,
+    _, (zi, zq) = ddc_chain.block(
+        ddc_chain.init(c), x, steps, ddc_chain.lowpass_coefficients(),
+        lo_mode="fast",
     )
-    z = (np.asarray(y8[:, 0], np.float64)
-         + 1j * np.asarray(y8[:, c], np.float64))
+    z = (np.asarray(zi[:, 0], np.float64)
+         + 1j * np.asarray(zq[:, 0], np.float64))
     z = z[1024:1024 + 2048]
     n = len(z)
     spec = np.abs(np.fft.fft(z)) ** 2

@@ -161,41 +161,6 @@ def test_sharded_hbf_dec_matches_block():
     np.testing.assert_array_equal(np.asarray(st_sh.odd), np.asarray(st_ref.odd))
 
 
-def test_sharded_hbf_dec_rdma_halo():
-    """Same equivalence with the halo moved by the Pallas RDMA kernel."""
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.parallel import make_mesh
-    from idsp_tpu.parallel.stream import sharded_hbf_dec
-
-    mesh = make_mesh({"sp": 8})
-    taps = hbf.HBF_TAPS[2]
-    m = len(taps)
-    c, t = 2, 8 * 32
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.normal(size=(c, t)).astype(np.float32))
-    st = hbf.hbf_dec_init(m, (c,))
-
-    f = jax.jit(
-        shard_map(
-            lambda st, x: sharded_hbf_dec(
-                taps, st, x, "sp", use_rdma=True, rdma_interpret=True
-            ),
-            mesh=mesh,
-            in_specs=(P(), P(None, "sp")),
-            out_specs=(P(), P(None, "sp")),
-            # JAX 0.9.0 interpret-mode vma limitation; repro + exit gate:
-            # scripts/jax_vma_repro.py (re-test on each JAX upgrade)
-            check_vma=False,
-        )
-    )
-    _, y_sh = f(st, x)
-    _, y = hbf.hbf_dec_block(taps, st, x)
-    np.testing.assert_allclose(np.asarray(y_sh), np.asarray(y), atol=2e-6)
-
-
 def test_channelizer_tensor_parallel():
     """TP channelizer (DFT contraction sharded + psum) matches the
     replicated channelizer across two chained blocks."""
@@ -265,71 +230,29 @@ def test_distributed_helpers_single_process():
 
 
 def test_channel_sharded_fused_cascade_bitexact():
-    # The headline chain's kernel (DF1 + 3-stage HBF cascade) under
-    # channel (dp) sharding: per-channel math is independent, so the
-    # 8-device result must be BIT-identical to the unsharded run —
+    # The headline chain (mix + DF1 + 3-stage HBF cascade) under channel
+    # (dp) sharding: per-channel math is independent, so the sharded
+    # result must be BIT-identical to the unsharded run across blocks —
     # including the f32 FIR outputs (same per-channel op order).
-    from functools import partial
-
-    from idsp_tpu.design import Filter
-    from idsp_tpu.filters import hbf
-    from idsp_tpu.filters.ddc_pallas import (
-        df1_hbf_cascade_bank, hbf1_tail_init,
-    )
+    from idsp_tpu.pipelines import ddc_chain
 
     n_dev = len(jax.devices())
     mesh = make_mesh({"dp": n_dev})
-    c2 = 128 * n_dev
-    t = 128
-    taps = (hbf.HBF_TAPS[2], hbf.HBF_TAPS[1], hbf.HBF_TAPS[0])
+    c, t = 4 * n_dev, 256
     rng = np.random.default_rng(44)
-    ba_q = jnp.asarray(
-        biquad.quantize_ba(
-            biquad.from_cookbook(Filter().critical_frequency(0.02).lowpass()),
-            29,
+    ba = ddc_chain.lowpass_coefficients()
+    steps = jnp.asarray(
+        rng.integers(1 << 24, 1 << 30, size=(c,), dtype=np.int64)
+        .astype(np.int32)
+    )
+    run = ddc_chain.channel_sharded(mesh, "dp", ba_q=ba)
+    st_ref = st_sh = ddc_chain.init(c)
+    for _ in range(2):
+        x = jnp.asarray(
+            rng.integers(-(2**27), 2**27, size=(t,), dtype=np.int64)
+            .astype(np.int32)
         )
-    )
-    xs = jnp.asarray(
-        rng.integers(-(2**27), 2**27, size=(t, c2), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    st = biquad.df1_init((c2,), jnp.int32)
-    tails = tuple(hbf1_tail_init(c2, len(tv)) for tv in taps)
-
-    run = partial(
-        df1_hbf_cascade_bank, ba_q, f=29, taps=taps, time_chunk=64,
-        interpret=True,
-    )
-    st_ref, tails_ref, y_ref = run(st, tails, xs)
-
-    fn = jax.jit(
-        shard_map(
-            lambda s, tl, x: run(s, tl, x),
-            mesh=mesh,
-            in_specs=(
-                biquad.Df1State(x=P("dp", None), y=P("dp", None)),
-                (P(None, "dp"),) * 3,
-                P(None, "dp"),
-            ),
-            out_specs=(
-                biquad.Df1State(x=P("dp", None), y=P("dp", None)),
-                (P(None, "dp"),) * 3,
-                P(None, "dp"),
-            ),
-            # The kernel DECLARES vma on its out_shapes (compiled
-            # shard_map verifies it on-device, tpu_validate_kernels);
-            # JAX 0.9's Pallas INTERPRET mode cannot run under the
-            # checker at all (kernel-body constants replay unvaried:
-            # "Primitive mul requires varying manual axes to match...
-            # as a temporary workaround pass check_vma=False").
-            # Repro + exit gate: scripts/jax_vma_repro.py (re-test on
-            # each JAX upgrade).
-            check_vma=False,
-        )
-    )
-    st_sh, tails_sh, y_sh = fn(st, tails, xs)
-    np.testing.assert_array_equal(np.asarray(y_sh), np.asarray(y_ref))
-    np.testing.assert_array_equal(np.asarray(st_sh.y), np.asarray(st_ref.y))
-    for a, b in zip(tails_sh, tails_ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        st_ref, y_ref = ddc_chain.block(st_ref, x, steps, ba_q=ba)
+        st_sh, y_sh = run(st_sh, x, steps)
+        for a, b in zip(y_sh, y_ref):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

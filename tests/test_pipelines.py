@@ -76,7 +76,7 @@ def test_channelizer_fft_matches_matmul():
 
 
 def test_channelize_planes_matches_frames():
-    # plane layout (TPU-native, m on lanes) == trailing-(m,2) layout
+    # plane layout (m contiguous) == trailing-(m,2) layout
     # bit-for-bit: same FIR order, same einsum contractions.
     import jax.numpy as jnp
 
@@ -133,75 +133,6 @@ def test_channelize_planes_streaming_and_bf16_gate():
         channelizer.init_planes(m, taps), zr, zi, m=m, taps=taps,
         twiddle_dtype=jnp.bfloat16,
     )
-    p = (np.asarray(yr, np.float64) ** 2
-         + np.asarray(yi, np.float64) ** 2)[32:].mean(axis=0)
-    assert int(np.argmax(p)) == ch
-    others = np.delete(p, ch)
-    assert p[ch] > 10.0 * others.max()
-
-
-def test_channelize_fused_matches_planes():
-    # one-kernel FIR+cast+DFT (channelizer_pallas) == the XLA planes
-    # path up to f32 contraction order (two K=m dots vs one K=2m dot;
-    # CLAUDE.md round-3 FMA-contraction lesson); carried history is a
-    # copy of input rows and matches bit-exactly.
-    import jax.numpy as jnp
-
-    from idsp_tpu.pipelines import channelizer_pallas as chp
-
-    m, taps, n = 128, 8, 64
-    rng = np.random.default_rng(7)
-    zr = jnp.asarray(rng.normal(size=(n, m)).astype(np.float32))
-    zi = jnp.asarray(rng.normal(size=(n, m)).astype(np.float32))
-
-    pst = channelizer.init_planes(m, taps)
-    _, yr0, yi0 = channelizer.channelize_planes(
-        pst, zr, zi, m=m, taps=taps)
-    st2, yr, yi = chp.channelize_fused(
-        pst, zr, zi, m=m, taps=taps, twiddle_dtype=jnp.float32,
-        interpret=True)
-    scale = float(np.abs(np.asarray(yr0)).max())
-    np.testing.assert_allclose(
-        np.asarray(yr), np.asarray(yr0), atol=2e-5 * scale)
-    np.testing.assert_allclose(
-        np.asarray(yi), np.asarray(yi0), atol=2e-5 * scale)
-    np.testing.assert_array_equal(
-        np.asarray(st2.hist_r), np.asarray(zr[n - (taps - 1):]))
-
-
-def test_channelize_fused_streaming_and_bf16_gate():
-    # two chained fused-kernel blocks == one-shot bit-exactly (the
-    # halo rides VMEM scratch across grid steps exactly as the hist
-    # input seeds it); bf16 twiddles pass the reference's >=10x
-    # bin-power gate (polyphase_channelizer.rs:166-178).
-    import jax.numpy as jnp
-
-    from idsp_tpu.pipelines import channelizer_pallas as chp
-
-    m, taps, nfr = 128, 8, 128
-    ch = 17
-    x = channelizer.tone(ch / m, m * nfr)
-    zr, zi = channelizer.planes_from_stream(x[..., 0], x[..., 1], m)
-
-    kw = dict(m=m, taps=taps, twiddle_dtype=jnp.float32,
-              block_frames=32, interpret=True)
-    _, yr1, yi1 = chp.channelize_fused(
-        channelizer.init_planes(m, taps), zr, zi, **kw)
-    stb = channelizer.init_planes(m, taps)
-    stb, ya_r, ya_i = chp.channelize_fused(
-        stb, zr[: nfr // 2], zi[: nfr // 2], **kw)
-    _, yb_r, yb_i = chp.channelize_fused(
-        stb, zr[nfr // 2:], zi[nfr // 2:], **kw)
-    np.testing.assert_array_equal(
-        np.asarray(jnp.concatenate([ya_r, yb_r], axis=0)),
-        np.asarray(yr1))
-    np.testing.assert_array_equal(
-        np.asarray(jnp.concatenate([ya_i, yb_i], axis=0)),
-        np.asarray(yi1))
-
-    _, yr, yi = chp.channelize_fused(
-        channelizer.init_planes(m, taps), zr, zi, m=m, taps=taps,
-        twiddle_dtype=jnp.bfloat16, interpret=True)
     p = (np.asarray(yr, np.float64) ** 2
          + np.asarray(yi, np.float64) ** 2)[32:].mean(axis=0)
     assert int(np.argmax(p)) == ch

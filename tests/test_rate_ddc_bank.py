@@ -224,7 +224,7 @@ def test_ddc_bank_fast_lo_acquires_offsets():
 
 
 def test_ddc_bank_biquad_fast_fused_tracks_exact():
-    # The one-kernel biquad front end (lo_mode="fast_fused") must drive
+    # The biquad bank with the fast LO (lo_mode="fast") must drive
     # the PLL bank to the SAME operating point as the exact-LO path:
     # per-channel recovered frequencies agree to LSB-scale (the fast
     # mix differs by ~8-LSB f32 rounding).  Absolute lock quality is
@@ -234,7 +234,7 @@ def test_ddc_bank_biquad_fast_fused_tracks_exact():
     rng = np.random.default_rng(2)
     grid = 1 << 26
     # 16 real tones on the grid; the other 112 DDC channels tune to
-    # empty spectrum (c must be a multiple of 128 for the kernel).
+    # empty spectrum.
     tone_steps = ((np.arange(16) + 8) * grid).astype(np.int64).astype(
         np.int32
     )
@@ -266,18 +266,18 @@ def test_ddc_bank_biquad_fast_fused_tracks_exact():
     )
 
     freqs = {}
-    for mode in ("exact", "fast_fused"):
+    for mode in ("exact", "fast"):
         st = ddc_bank.init_biquad(c)
         st, out = ddc_bank.ddc_bank_block_biquad(
             st, x, jnp.asarray(steps), ba_q, pll_ba, decimate=decim,
-            lo_mode=mode, interpret=True,
+            lo_mode=mode,
         )
         freqs[mode] = np.asarray(out[-1]).astype(np.int64)[:16]
 
     want = -(offsets16.astype(np.int64) * decim)
-    err = (freqs["fast_fused"] - want + 2**31) % 2**32 - 2**31
+    err = (freqs["fast"] - want + 2**31) % 2**32 - 2**31
     assert np.median(np.abs(err)) < 1 << 18, err  # loose absolute lock
-    d = (freqs["fast_fused"] - freqs["exact"] + 2**31) % 2**32 - 2**31
+    d = (freqs["fast"] - freqs["exact"] + 2**31) % 2**32 - 2**31
     assert np.median(np.abs(d)) < 1 << 12, d  # tracks the exact path
 
 
@@ -297,37 +297,3 @@ def test_ddc_bank_fast_lo_non_pow2_block():
         lo_mode="fast",
     )
     assert out[0].shape == (12, c)
-
-
-def test_cic_hbf_composite_kernel_path():
-    """Time-major composite decimator via the kernel path == XLA path
-    (CIC leg bit-exact, HBF leg FMA-gated)."""
-    import numpy as np
-
-    cic_rate = 3  # CIC by 4 then HBF by 4: total 16x
-    depth = 2
-    c = 128
-    t = 16 * 64
-    rng = np.random.default_rng(21)
-    x = jnp.asarray(
-        rng.integers(-(2**20), 2**20, size=(t, c), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    cs_a = cic.init(3, 1, (c,))
-    hs_a = hbf.hbf_dec_cascade_init(depth, (c,), axis=0)
-    cs_b = cic.init(3, 1, (c,))
-    hs_b = hbf.hbf_dec_cascade_init(depth, (c,), axis=0)
-    (cs_a, hs_a), y_ref = rate_conversion.cic_hbf_decimate_t(
-        cs_a, hs_a, x, cic_rate, depth
-    )
-    (cs_b, hs_b), y_k = rate_conversion.cic_hbf_decimate_t(
-        cs_b, hs_b, x, cic_rate, depth, use_kernel=True, interpret=True
-    )
-    assert y_k.shape == (t // 16, c)
-    np.testing.assert_array_equal(
-        np.asarray(cs_b.integrators), np.asarray(cs_a.integrators)
-    )
-    scale = np.float32(max(np.abs(np.asarray(y_ref)).max(), 1.0))
-    assert np.abs(np.asarray(y_k) - np.asarray(y_ref)).max() \
-        <= 16 * np.spacing(scale)

@@ -1,4 +1,4 @@
-"""Pallas bank kernels for the alternative structures (SVF, normal
+"""Lane-bank kernels for the alternative structures (SVF, normal
 form, RPLL): bit-exactness vs the lax.scan references, interpret mode.
 
 Same equivalence-test pattern as test_biquad_pallas.py (the reference's
@@ -32,7 +32,7 @@ def test_svf_bank_matches_scan(output):
         "br": outs.hp + outs.lp,
     }[output]
     st_pl, ys_pl = svf_bank(
-        f, qi, st, xs, output=output, time_chunk=128, interpret=True
+        f, qi, st, xs, output=output, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     for a, b in zip(st_pl, st_ref):
@@ -62,7 +62,7 @@ def test_normal_bank_q_matches_scan():
 
     st_ref, ys_ref = jax.lax.scan(step, st, xs)
     st_pl, ys_pl = normal_bank_q(
-        b_q, p_q, st, xs, f, time_chunk=128, interpret=True
+        b_q, p_q, st, xs, f, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.x), np.asarray(st_ref.x))
@@ -81,7 +81,7 @@ def test_normal_bank_f32_matches_scan():
         jnp.asarray(b), jnp.asarray(p), st, xs, unroll=1
     )
     st_pl, ys_pl = normal_bank_f32(
-        b, p, st, xs, time_chunk=128, interpret=True
+        b, p, st, xs, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(ys_pl), np.asarray(ys_ref))
     np.testing.assert_array_equal(np.asarray(st_pl.y), np.asarray(st_ref.y))
@@ -109,7 +109,7 @@ def test_rpll_bank_matches_scan():
     st = rpll.init((c,))
     st_ref, (y_ref, f_ref) = rpll.block(cfg, st, xs_j, v_j)
     st_pl, (y_pl, f_pl) = rpll_bank(
-        cfg, st, xs_j, v_j, time_chunk=128, interpret=True
+        cfg, st, xs_j, v_j, interpret=True
     )
     np.testing.assert_array_equal(np.asarray(y_pl), np.asarray(y_ref))
     np.testing.assert_array_equal(np.asarray(f_pl), np.asarray(f_ref))
@@ -119,182 +119,3 @@ def test_rpll_bank_matches_scan():
     )
     np.testing.assert_array_equal(np.asarray(st_pl.f), np.asarray(st_ref.f))
     np.testing.assert_array_equal(np.asarray(st_pl.y), np.asarray(st_ref.y))
-
-
-def test_fm_disc_bank_one_kernel_matches_composition():
-    # the whole FM receiver (conj product + atan2 + carrier subtract +
-    # Q32<30> DF1) in one kernel vs the composed fm_receiver path —
-    # bit-identical, including the first-sample validity masking and
-    # the cross-block carry
-    import jax
-
-    from idsp_tpu.filters.fm_pallas import fm_disc_bank
-    from idsp_tpu.pipelines import fm_disc
-
-    c, t = 128, 512
-    rng = np.random.default_rng(31)
-    re = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(t, c), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    im = jnp.asarray(
-        rng.integers(-(2**31), 2**31, size=(t, c), dtype=np.int64).astype(
-            np.int32
-        )
-    )
-    carrier = 0x1934_1234  # the example's carrier (< 2^31, i32 as-is)
-    ba_q = jnp.asarray(fm_disc.deemphasis_coefficients(0.02))
-
-    st_ref = fm_disc.init_state((c,))
-    st_pl = fm_disc.init_state((c,))
-    # two blocks: exercises the carried prev-IQ/validity plane
-    for lo, hi in ((0, t // 2), (t // 2, t)):
-        st_ref, y_ref = fm_disc.fm_receiver(
-            st_ref, re[lo:hi], im[lo:hi], jnp.int32(carrier), ba_q
-        )
-        st_pl, y_pl = fm_disc_bank(
-            np.asarray(ba_q), st_pl, re[lo:hi], im[lo:hi], carrier,
-            time_chunk=128, trig_sub=8, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(y_pl), np.asarray(y_ref))
-    np.testing.assert_array_equal(
-        np.asarray(st_pl.prev_re), np.asarray(st_ref.prev_re)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(st_pl.prev_valid), np.asarray(st_ref.prev_valid)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(st_pl.deemph.y), np.asarray(st_ref.deemph.y)
-    )
-
-
-def test_ddc_lockin_bank_one_kernel():
-    # BASELINE #2 example as one kernel: (a) tolerance-equal to the
-    # composed XLA path (factored f32 LO differs only by product
-    # rounding), (b) passes the reference IQ-recovery acceptance gates
-    # (ddc_lockin.rs:104-110), (c) LO phase continuous across blocks.
-    import jax
-
-    from idsp_tpu.filters import biquad
-    from idsp_tpu.filters.ddc_pallas import ddc_lockin_bank
-
-    c, t = 128, 4096
-    lo_fs = np.linspace(0.05, 0.45, c)
-    phi = 0.37
-    k_tone = 40
-    i = np.arange(t, dtype=np.float64)
-    x = jnp.asarray(
-        np.cos(2 * np.pi * lo_fs[k_tone] * i + phi).astype(np.float32)
-    )
-    ba = biquad.from_cookbook(
-        Filter().critical_frequency(0.002).lowpass()
-    ).astype(np.float32)
-
-    # composed reference: direct f64-phase LO + sequential scan
-    ph = (i[:, None] * (2 * np.pi * lo_fs[None, :])) % (2 * np.pi)
-    lc = jnp.asarray(np.cos(ph).astype(np.float32))
-    ls = jnp.asarray(np.sin(ph).astype(np.float32))
-    iq = jnp.concatenate([x[:, None] * lc, -(x[:, None] * ls)], axis=1)
-    st0 = biquad.df1_init((2 * c,), jnp.float32)
-    _, y_ref = biquad.df1_process(jnp.asarray(ba), st0, iq)
-
-    # (c) two chained kernel blocks == the full run
-    st = biquad.df1_init((2 * c,), jnp.float32)
-    h = t // 2
-    st, y1 = ddc_lockin_bank(ba, st, x[:h], lo_fs, 0, time_chunk=256,
-                             interpret=True)
-    st, y2 = ddc_lockin_bank(ba, st, x[h:], lo_fs, h, time_chunk=256,
-                             interpret=True)
-    y = np.concatenate([np.asarray(y1), np.asarray(y2)])
-
-    # (a) tolerance vs composition (f32 LO product rounding only)
-    assert np.max(np.abs(y - np.asarray(y_ref))) < 2e-5
-
-    # (b) reference acceptance: channel k recovers [cos, sin]*0.5
-    tail = y[3 * t // 4:].astype(np.float64)
-    mean_i = tail[:, k_tone].mean()
-    mean_q = tail[:, c + k_tone].mean()
-    exp_i, exp_q = 0.5 * np.cos(phi), 0.5 * np.sin(phi)
-    assert abs(mean_i - exp_i) < 3e-3 and abs(mean_q - exp_q) < 3e-3
-    rms = np.sqrt(
-        ((tail[:, k_tone] - exp_i) ** 2
-         + (tail[:, c + k_tone] - exp_q) ** 2).mean()
-    )
-    assert rms < 6e-3
-    # distant channels see no DC (neighbors sit inside the lowpass
-    # transition band of the difference tone — exclude a small window)
-    off = np.abs(tail[:, :c]).mean(axis=0)
-    off = np.concatenate([off[: k_tone - 3], off[k_tone + 4:]])
-    assert off.max() < 0.05
-
-
-def test_atan2_f32_word_error_bound():
-    # the fast-angle path: within 1e-6 rad of the ideal angle on a
-    # dense magnitude/angle grid (the exact path's documented bound is
-    # 2.3e-6 rad, src/atan2.rs:150-152)
-    from idsp_tpu.filters.ddc_pallas import atan2_f32_word
-
-    rng = np.random.default_rng(7)
-    mag = np.exp(rng.uniform(np.log(1e3), np.log(2**62), size=20000))
-    ang = rng.uniform(-np.pi, np.pi, size=20000)
-    y = (mag * np.sin(ang)).astype(np.float32)
-    x = (mag * np.cos(ang)).astype(np.float32)
-    w = np.asarray(atan2_f32_word(jnp.asarray(y), jnp.asarray(x)))
-    got = w.astype(np.float64) * np.pi / 2**31
-    want = np.arctan2(y.astype(np.float64), x.astype(np.float64))
-    err = np.abs(np.angle(np.exp(1j * (got - want))))
-    assert err.max() < 1e-6, err.max()
-
-
-def test_fm_disc_bank_fast_angle_tracks_exact():
-    # angle="fast" (f32 conj product + f32 atan2): tolerance-equal to
-    # the bit-exact kernel — worst case a few hundred LSB of the i32
-    # word through the unity-gain deemphasis — and the carried state
-    # planes stay consistent across blocks.
-    from idsp_tpu.filters.fm_pallas import fm_disc_bank
-    from idsp_tpu.pipelines import fm_disc
-
-    c, t = 128, 512
-    rng = np.random.default_rng(33)
-    # amplitudes well above the noise floor (the FM fixture mixes at
-    # near-full-scale; tiny IQ magnitudes lose angle accuracy in f32)
-    ang = rng.uniform(-np.pi, np.pi, size=(t, c))
-    mag = rng.uniform(2**28, 2**30, size=(t, c))
-    re = jnp.asarray((mag * np.cos(ang)).astype(np.int32))
-    im = jnp.asarray((mag * np.sin(ang)).astype(np.int32))
-    carrier = 0x1934_1234
-    ba_q = jnp.asarray(fm_disc.deemphasis_coefficients(0.02))
-
-    st_e = fm_disc.init_state((c,))
-    st_f = fm_disc.init_state((c,))
-    for lo, hi in ((0, t // 2), (t // 2, t)):
-        st_e, y_e = fm_disc_bank(
-            np.asarray(ba_q), st_e, re[lo:hi], im[lo:hi], carrier,
-            time_chunk=128, interpret=True,
-        )
-        st_f, y_f = fm_disc_bank(
-            np.asarray(ba_q), st_f, re[lo:hi], im[lo:hi], carrier,
-            time_chunk=128, angle="fast", interpret=True,
-        )
-        d = np.abs(
-            np.asarray(y_f, np.int64) - np.asarray(y_e, np.int64)
-        )
-        # dphi error budget: 3.4e-7 rad poly + f32 product rounding
-        # -> ~300 LSB of the 2^31/pi word; deemphasis gain <= 1
-        assert d.max() <= 1024, d.max()
-    np.testing.assert_array_equal(
-        np.asarray(st_f.prev_re), np.asarray(st_e.prev_re)
-    )
-
-
-def test_fm_disc_bank_fast_passes_reference_gates():
-    # the fast path through the reference example's own acceptance
-    # thresholds (fm_disc.rs:151-157): corr > 0.999, gain in (0.95,
-    # 1.05), rms < 5e-4
-    from idsp_tpu.pipelines import fm_disc
-
-    r = fm_disc.run_fm_disc(kernel="fast")
-    assert r["corr"] > 0.999
-    assert 0.95 < r["gain"] < 1.05
-    assert r["rms"] < 5e-4
